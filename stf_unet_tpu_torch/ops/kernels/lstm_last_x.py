@@ -1,0 +1,88 @@
+"""K1 forward: last-step pixel LSTM with the input projection in the kernel.
+
+Replaces the TPU kernel `stf_unet_tpu/ops/pallas/lstm_train_kernel.py:
+_fwd_call` (kernel body `_make_fwd_kernel`, public `fused_lstm_last_x`)
+with the hand-written CUDA kernel `csrc/lstm_last_x.cu`.
+
+x [T, N, C], w_ih / w_hh [C, 4C] (the JAX layout, gate order i, f, g, o),
+b [4C] -> h_T [N, C] in x's dtype. Gate sums and the (h, c) state are f32;
+h is rounded to x's dtype before the recurrent product, as the TPU kernel
+does. Only h_T is written: no [T, N, 4C] projection and no h/c sequence
+reach device memory.
+
+Bound on the H100: operations. At the serving shapes (T=8; N = B*h*w with
+B=8 at C = 64/128/256) the kernel does 16*T*N*C^2 = 13.2 GFLOP per call,
+~13 us at the 989 TFLOP/s bf16 peak, against 6.4-25.7 MB of x (2-8 us at
+3.35 TB/s). The first version runs its products on CUDA cores (see the
+source note in csrc/lstm_last_x.cu); its measured times are in PERF.md.
+
+On a CPU tensor the wrapper runs `lstm_last_x_plain`; on a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from stf_unet_tpu_torch.ops.kernels import build
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def lstm_last_x_plain(x: torch.Tensor, w_ih: torch.Tensor,
+                      w_hh: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, with its rounding points:
+    products of dtype values summed in f32, h cast to x's dtype before
+    h @ W_hh, (h, c) carried in f32, h_T cast to x's dtype."""
+    f32 = torch.float32
+    t_steps, n, c = x.shape
+    wi, wh, bias = w_ih.to(f32), w_hh.to(f32), b.to(f32)
+    h = torch.zeros((n, c), dtype=f32, device=x.device)
+    cs = torch.zeros_like(h)
+    for t in range(t_steps):
+        gates = (x[t].to(f32) @ wi + h.to(x.dtype).to(f32) @ wh) + bias
+        i, f, g, o = gates.chunk(4, dim=1)
+        cs = torch.sigmoid(f) * cs + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(cs)
+    return h.to(x.dtype)
+
+
+def lstm_last_x(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """h_T of the LSTM over x's leading time axis (see module docstring)."""
+    if x.device.type == "cpu":
+        return lstm_last_x_plain(x, w_ih, w_hh, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"lstm_last_x runs on CUDA or CPU, not {x.device}")
+    t_steps, n, c = x.shape
+    if x.dtype not in build.DTYPE_CODES:
+        raise TypeError(f"lstm_last_x takes float32 or bfloat16, not "
+                        f"{x.dtype}")
+    for name, v, shape in (("w_ih", w_ih, (c, 4 * c)),
+                           ("w_hh", w_hh, (c, 4 * c)), ("b", b, (4 * c,))):
+        if tuple(v.shape) != shape or v.dtype != x.dtype \
+                or v.device != x.device:
+            raise ValueError(f"{name}: expected {shape} {x.dtype} on "
+                             f"{x.device}, got {tuple(v.shape)} {v.dtype} "
+                             f"on {v.device}")
+    if c % 32 or not 32 <= c <= 512:
+        raise ValueError(f"lstm_last_x kernel takes C in 32..512, a "
+                         f"multiple of 32; got C={c}")
+    lib = build.load("lstm_last_x", _ARGTYPES)
+    x = x.contiguous()
+    wi, wh, bias = build.pack_gates(w_ih), build.pack_gates(w_hh), \
+        b.contiguous()
+    out = torch.empty((n, c), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        status = lib.stf_lstm_last_x(
+            x.data_ptr(), wi.data_ptr(), wh.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), t_steps, n, c, build.DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check_status("lstm_last_x", status)
+    lstm_last_x.launches += 1
+    return out
+
+
+lstm_last_x.launches = 0

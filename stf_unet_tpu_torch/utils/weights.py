@@ -1,0 +1,124 @@
+"""Carry STF-LSTM-UNet weights from the JAX package's Flax trees into the
+reference PyTorch state_dict layout that this package's model loads
+(strict=True). The port's own copy of the conversions in
+stf_unet_tpu/utils/torch_export.py:
+
+  * Conv kernel HWIO [kh,kw,in,out] -> torch [out,in,kh,kw]
+  * Transposed conv: the stored flipped forward-conv HWIO kernel ->
+    transpose to [in,out,kh,kw] -> spatial flip
+  * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
+    (+ a zero num_batches_tracked so strict loads succeed)
+  * LSTM [C,4C] -> transposed torch [4C,C]; separate b_ih/b_hh kept
+
+Inputs are trees of numpy arrays (or anything np.asarray takes); outputs
+are CPU torch tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_STAGE_SIZES = (3, 4, 6, 3)  # torchvision resnet34
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x)
+
+
+def conv_weight_from_hwio(k) -> np.ndarray:
+    """HWIO [kh,kw,in,out] -> torch Conv2d [out,in,kh,kw]."""
+    return _np(k).transpose(3, 2, 0, 1).copy()
+
+
+def convt_weight_from_hwio(k) -> np.ndarray:
+    """Flipped forward-conv HWIO kernel -> torch ConvTranspose2d
+    [in,out,kh,kw]."""
+    return _np(k).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1].copy()
+
+
+def _conv(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = conv_weight_from_hwio(p["kernel"])
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _np(p["bias"])
+
+
+def _convt(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = convt_weight_from_hwio(p["kernel"])
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _np(p["bias"])
+
+
+def _bn(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _np(p["scale"])
+    sd[f"{prefix}.bias"] = _np(p["bias"])
+    sd[f"{prefix}.running_mean"] = _np(s["mean"])
+    sd[f"{prefix}.running_var"] = _np(s["var"])
+    sd[f"{prefix}.num_batches_tracked"] = np.asarray(0, dtype=np.int64)
+
+
+def _residual_block(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    _conv(sd, f"{prefix}.conv_block.0", p["conv1"])
+    _bn(sd, f"{prefix}.conv_block.1", p["norm1"]["bn"], s["norm1"]["bn"])
+    _conv(sd, f"{prefix}.conv_block.3", p["conv2"])
+    _bn(sd, f"{prefix}.conv_block.4", p["norm2"]["bn"], s["norm2"]["bn"])
+    if "shortcut_conv" in p:
+        _conv(sd, f"{prefix}.shortcut.0", p["shortcut_conv"])
+        _bn(sd, f"{prefix}.shortcut.1", p["shortcut_norm"]["bn"],
+            s["shortcut_norm"]["bn"])
+
+
+def _basic_block(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    _conv(sd, f"{prefix}.conv1", p["conv1"])
+    _bn(sd, f"{prefix}.bn1", p["bn1"]["bn"], s["bn1"]["bn"])
+    _conv(sd, f"{prefix}.conv2", p["conv2"])
+    _bn(sd, f"{prefix}.bn2", p["bn2"]["bn"], s["bn2"]["bn"])
+    if "down_conv" in p:
+        _conv(sd, f"{prefix}.downsample.0", p["down_conv"])
+        _bn(sd, f"{prefix}.downsample.1", p["down_bn"]["bn"],
+            s["down_bn"]["bn"])
+
+
+def _lstm(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight_ih_l0"] = _np(p["w_ih"]).T.copy()
+    sd[f"{prefix}.weight_hh_l0"] = _np(p["w_hh"]).T.copy()
+    sd[f"{prefix}.bias_ih_l0"] = _np(p["b_ih"])
+    sd[f"{prefix}.bias_hh_l0"] = _np(p["b_hh"])
+
+
+def _decoder_block(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    _convt(sd, f"{prefix}.up", p["up"])
+    _conv(sd, f"{prefix}.fusion", p["fusion"])
+    _residual_block(sd, f"{prefix}.res_conv", p["res_conv"], s["res_conv"])
+
+
+def stflstm_state_dict_from_jax(params: Mapping, batch_stats: Mapping
+                                ) -> Dict[str, torch.Tensor]:
+    """STFLSTMUNet (params, batch_stats) trees -> reference-layout torch
+    state_dict (torchvision resnet34 BasicBlock names + the STF-LSTM-UNet
+    heads)."""
+    sd: Dict = {}
+    enc_p, enc_s = params["encoder"], batch_stats["encoder"]
+    _conv(sd, "conv1", enc_p["conv1"])
+    _bn(sd, "bn1", enc_p["bn1"]["bn"], enc_s["bn1"]["bn"])
+    for stage, blocks in enumerate(_STAGE_SIZES):
+        for b in range(blocks):
+            name = f"layer{stage + 1}_block{b}"
+            _basic_block(sd, f"layer{stage + 1}.{b}", enc_p[name],
+                         enc_s[name])
+    for i in range(1, 5):
+        if f"pk_fusion{i}" in params:
+            _conv(sd, f"pk_fusion{i}", params[f"pk_fusion{i}"])
+        _lstm(sd, f"lstm{i}", params[f"lstm{i}"])
+    for i in (4, 3, 2):
+        _decoder_block(sd, f"decoder{i}", params[f"decoder{i}"],
+                       batch_stats[f"decoder{i}"])
+    _convt(sd, "upconv1", params["upconv1"])
+    _residual_block(sd, "final_res", params["final_res"],
+                    batch_stats["final_res"])
+    _conv(sd, "final", params["final"])
+    # np.array copies: arrays handed over from JAX are read-only views,
+    # which torch.as_tensor would alias with a warning.
+    return {k: torch.as_tensor(np.array(v)) for k, v in sd.items()}
