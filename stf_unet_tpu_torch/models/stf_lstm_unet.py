@@ -1,8 +1,11 @@
 """STF-LSTM-UNet (counterpart of stf_unet_tpu/models/stf_lstm_unet.py).
 
 Topology, as in the JAX package:
-  * ResNet-34 encoder run ONCE over the folded [B*T, 1, H, W] frames
-    (eval-mode BN makes this identical to a per-frame loop).
+  * ResNet-34 encoder run ONCE over the folded [B*T, 1, H, W] frames.
+    Convolutions and eval-mode BN compute the same as a per-frame loop;
+    in training, BN's batch statistics are taken over all B*T frames
+    rather than per time step (the JAX package's documented divergence
+    from the reference).
   * Per-pixel LSTM temporal fusion at each of the 4 scales; the last step
     feeds the decoder (ops/lstm.pixel_lstm, kernels K1/K3 on CUDA).
   * Decoder: 3x DecoderBlock, ConvT k3 s2 + ResidualConvBlock + 1x1 head.
@@ -61,7 +64,7 @@ class PixelLSTM(nn.Module):
         bias = (self.bias_ih_l0 + self.bias_hh_l0).to(dt)  # folded in f32
         return pixel_lstm(feat_seq, self.weight_ih_l0.t().to(dt),
                           self.weight_hh_l0.t().to(dt), bias,
-                          backend=self.backend)
+                          backend=self.backend, train=self.training)
 
 
 class STFLSTMUNet(ResNet34Encoder):

@@ -16,7 +16,9 @@ The first version runs its products on CUDA cores (see the source note in
 csrc/lstm_last.cu); its measured times are in PERF.md.
 
 On a CPU tensor the wrapper runs `lstm_last_plain`; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. It has no backward, as the TPU kernel has
+none (lstm_kernel.py:76): under grad mode with an input that requires
+grad it raises instead of returning a tensor cut from the graph.
 """
 
 from __future__ import annotations
@@ -51,6 +53,11 @@ def lstm_last_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
 def lstm_last(x_proj: torch.Tensor, w_hh: torch.Tensor,
               b: torch.Tensor) -> torch.Tensor:
     """h_T of the LSTM over x_proj's leading time axis (module docstring)."""
+    if torch.is_grad_enabled() and any(
+            v.requires_grad for v in (x_proj, w_hh, b)):
+        raise RuntimeError(
+            "lstm_last (kernel K3) has no backward: train through "
+            "pixel_lstm(train=True), which routes to 'fused' or 'scan'")
     if x_proj.device.type == "cpu":
         return lstm_last_plain(x_proj, w_hh, b)
     if x_proj.device.type != "cuda":

@@ -16,8 +16,11 @@ B=8 at C = 64/128/256) the kernel does 16*T*N*C^2 = 13.2 GFLOP per call,
 3.35 TB/s). The first version runs its products on CUDA cores (see the
 source note in csrc/lstm_last_x.cu); its measured times are in PERF.md.
 
-On a CPU tensor the wrapper runs `lstm_last_x_plain`; on a CUDA tensor it
-launches the kernel or raises.
+`lstm_last_x` is differentiable: it applies `LstmLastX`, whose backward is
+K1b (ops/kernels/lstm_last_x_bwd.py), with the JAX VJP's casts (dx in x's
+dtype, dW and db accumulated in f32 and cast to the weights' dtype,
+lstm_train_kernel.py:551-559). On a CPU tensor both directions run their
+plain versions; on a CUDA tensor they launch their kernels or raise.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import ctypes
 import torch
 
 from stf_unet_tpu_torch.ops.kernels import build
+from stf_unet_tpu_torch.ops.kernels.lstm_last_x_bwd import lstm_last_x_bwd
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
@@ -49,9 +53,8 @@ def lstm_last_x_plain(x: torch.Tensor, w_ih: torch.Tensor,
     return h.to(x.dtype)
 
 
-def lstm_last_x(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
-                b: torch.Tensor) -> torch.Tensor:
-    """h_T of the LSTM over x's leading time axis (see module docstring)."""
+def _forward(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+             b: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return lstm_last_x_plain(x, w_ih, w_hh, b)
     if x.device.type != "cuda":
@@ -83,6 +86,28 @@ def lstm_last_x(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     build.check_status("lstm_last_x", status)
     lstm_last_x.launches += 1
     return out
+
+
+class LstmLastX(torch.autograd.Function):
+    """K1 forward with K1b as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, w_ih, w_hh, b):
+        ctx.save_for_backward(x, w_ih, w_hh, b)
+        return _forward(x, w_ih, w_hh, b)
+
+    @staticmethod
+    def backward(ctx, dh):
+        x, w_ih, w_hh, b = ctx.saved_tensors
+        dx, dwi, dwh, db = lstm_last_x_bwd(x, w_ih, w_hh, b, dh.to(x.dtype))
+        return dx, dwi.to(w_ih.dtype), dwh.to(w_hh.dtype), db.to(b.dtype)
+
+
+def lstm_last_x(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """h_T of the LSTM over x's leading time axis (see module docstring),
+    differentiable in all four inputs."""
+    return LstmLastX.apply(x, w_ih, w_hh, b)
 
 
 lstm_last_x.launches = 0

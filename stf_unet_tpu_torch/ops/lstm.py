@@ -11,8 +11,9 @@ Backends of `pixel_lstm`:
               inside the kernel;
   * "last"  - a `torch.matmul` input projection, then kernel K3
               (ops/kernels/lstm_last);
-  * "auto"  - on CUDA, "fused" for C <= FUSED_MAX_C and "last" above; on
-              the CPU, "scan".
+  * "auto"  - on CUDA, in inference "fused" for C <= FUSED_MAX_C and
+              "last" above; in training "fused" for C <= FUSED_TRAIN_MAX_C
+              and "scan" above (K3 has no backward); on the CPU, "scan".
 
 Gate order and arithmetic match torch.nn.LSTM (i, f, g, o). Weights use
 the JAX layout [C, 4C].
@@ -32,6 +33,12 @@ from stf_unet_tpu_torch.ops.kernels.lstm_last_x import lstm_last_x
 # stf_unet_tpu/ops/pallas/lstm_kernel.py:lstm_backend_default), carried
 # over as is: it has not yet been measured on the H100.
 FUSED_MAX_C = 256
+# Widest C that "auto" sends to K1 (forward + backward K1b) in training;
+# wider goes to the scan. This is the TPU's roofline crossover (the
+# kernel's gate-recompute FLOPs grow with C^2, the scan's residual traffic
+# with C: stf_unet_tpu/ops/pallas/lstm_kernel.py:108-113), carried over as
+# is: it has not been measured on the H100.
+FUSED_TRAIN_MAX_C = 128
 
 BACKENDS = ("auto", "scan", "fused", "last")
 
@@ -63,25 +70,28 @@ def lstm_scan(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     return h
 
 
-def lstm_backend_default(device: torch.device, cdim: int) -> str:
+def lstm_backend_default(device: torch.device, cdim: int,
+                         train: bool = False) -> str:
     if device.type != "cuda":
         return "scan"
+    if train:
+        return "fused" if cdim <= FUSED_TRAIN_MAX_C else "scan"
     return "fused" if cdim <= FUSED_MAX_C else "last"
 
 
 def pixel_lstm(feat_seq: torch.Tensor, w_ih: torch.Tensor,
                w_hh: torch.Tensor, b: Optional[torch.Tensor],
-               backend: str = "auto") -> torch.Tensor:
+               backend: str = "auto", train: bool = False) -> torch.Tensor:
     """Temporal fusion of per-scale encoder features.
 
     feat_seq [B, T, H, W, C] -> [B, H, W, C], the last LSTM step per
     pixel. Lanes are feat_seq.transpose(1,0,2,3,4).reshape(T, B*H*W, C),
-    as in the JAX package.
+    as in the JAX package. `train` selects the training routing of "auto".
     """
     bsz, t_steps, h, w, c = feat_seq.shape
     lanes = feat_seq.transpose(0, 1).reshape(t_steps, bsz * h * w, c)
     if backend == "auto":
-        backend = lstm_backend_default(lanes.device, c)
+        backend = lstm_backend_default(lanes.device, c, train)
     if backend == "scan":
         out = lstm_scan(lanes, w_ih, w_hh, b)
     elif backend in ("fused", "last"):

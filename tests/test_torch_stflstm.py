@@ -198,10 +198,23 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
+# Modules of the training slice; the check below must reach each of them.
+TRAINING_MODULES = (
+    "cli/train.py", "core/prng.py", "data/index.py", "data/loader.py",
+    "data/synthetic.py", "losses/criterion.py", "losses/dice.py",
+    "metrics/confusion.py", "metrics/dice.py", "metrics/meters.py",
+    "ops/kernels/lstm_last_x_bwd.py", "ops/kernels/warp.py",
+    "train/checkpoint.py", "train/early_stop.py", "train/loop.py",
+    "train/schedule.py", "train/state.py",
+)
+
+
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "stf_unet_tpu_torch").rglob("*.py"))
+    for rel in TRAINING_MODULES:
+        assert REPO / "stf_unet_tpu_torch" / rel in files, rel
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 20
+    assert len(files) > 40
     forbidden = {"jax", "jaxlib", "flax", "optax", "orbax", "stf_unet_tpu"}
     for path in files:
         bad = forbidden & set(_imported_roots(path))
