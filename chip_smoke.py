@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the repository root
 
 Phases, each of which fails the run (non-zero exit, no result line):
-  1. card: print the GPU's name and power limit; build the four CUDA
+  1. card: print the GPU's name and power limit; build the five CUDA
      kernels from csrc/ with nvcc, in parallel, and print the build seconds.
   2. kernels: each kernel against its plain PyTorch version on the card.
      K1 forward and K3 at every row count the serving and training paths
@@ -12,10 +12,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      evaluation batch 16, at crop 224, T=8); K1b (the LSTM backward)
      at the training shapes (C=64/N=50176, C=128/N=12544, a ragged N, one
      C=256 shape), all in bf16 and f32, and twice to show it is
-     deterministic; K2 (the augmentation warp) at B=16, 256^2 -> 224^2.
-     Timings of kernel, plain version and a library yardstick, and the
-     training routing: one pixel LSTM's forward + backward through K1 + K1b
-     and through the scan at each scale.
+     deterministic; K2 (the augmentation warp) at B=16, 256^2 -> 224^2,
+     with the frames and mask (Cs=9) and with the PK maps too (Cs=12);
+     K4 (the PK fit's quadrature sums) at N = 16384, 8951 and 256 voxels,
+     T=8, Q=700. Timings of kernel, plain version and a library
+     yardstick, and the training routing: one pixel LSTM's forward +
+     backward through K1 + K1b and through the scan at each scale.
   3. serving: a seeded full-width STF-LSTM-UNet (ResNet-34, pixel LSTMs at
      C=64..512, T=8, crop 224, bf16) written as a reference-layout .pth,
      served through cli/serve.build_server on 127.0.0.1, answering
@@ -26,15 +28,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      name, the pixel-LSTM kernels' share, the device's idle share).
   5. kernel path against plain path: logits of one batch with the kernels
      ("auto") and with the plain LSTM loop ("scan").
-  6. training: a synthetic BreaDM tree at 256^2 (64 training slices),
-     cli/train at full width (bf16, batch 16, crop 224) for 3 epochs = 12
-     steps with evaluation and latest/best checkpoints; every loss finite
-     and every training kernel launched during this phase.
+  6. training: a synthetic BreaDM tree of subtraction (SUB) sequences at
+     256^2 (64 training slices), cli/train at full width (bf16, batch 16,
+     crop 224) for 3 epochs = 12 steps with evaluation and latest/best
+     checkpoints; every loss finite and every training kernel launched
+     during this phase.
   7. steps: the loss of repeated steps on one fixed batch falls; ms per
      step, samples/s, the device's idle share and a torch.profiler view of
      one step.
   8. training path against plain path: one f32 step through the kernels
      and through the scan + plain warp; loss and every gradient.
+  9. PK maps: `python -m stf_unet_tpu_torch.pk.maps` (LM) over the tree's
+     12 volumes; finite maps for each, K4 launched 2 x lm_iters times per
+     voxel chunk, seconds per volume, a torch.profiler view of one chunk,
+     and one volume's maps through K4 against the plain sums.
+ 10. PK training and serving: cli/train with --use-pk-maps (bf16, batch
+     16, crop 224, 2 epochs = 8 steps), every loss finite and K1, K1b, K2
+     and K3 launched; then the best checkpoint served through
+     cli/serve.build_server, answering requests of 11 planes (8 frames
+     and the three maps); then phase 7's fixed-batch steps on the
+     PK-maps model.
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -110,6 +123,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def dev_ms(e) -> float:
+    """Device time of one torch.profiler key_averages() entry, in ms."""
+    return (getattr(e, "device_time_total", 0.0)
+            or getattr(e, "cuda_time_total", 0.0)) / 1e3
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -375,10 +394,10 @@ def lstm_bwd_bytes(args) -> float:
             + 4 * (8 * c * c + 4 * c))
 
 
-def warp_inputs(device):
-    """A training batch's warp inputs: random uint8 frames and a binary
-    mask on a 256^2 canvas (some samples padded), and the source grids
-    TrainAugment draws for them."""
+def warp_inputs(device, pk_maps: bool):
+    """A training batch's warp inputs: random uint8 frames (and, with
+    pk_maps, three PK maps) and a binary mask on a 256^2 canvas (some
+    samples padded), and the source grids TrainAugment draws for them."""
     import torch
 
     from stf_unet_tpu_torch.core.config import DataConfig
@@ -387,7 +406,8 @@ def warp_inputs(device):
 
     gen = torch.Generator().manual_seed(2)
     aug = TrainAugment(DataConfig())
-    frames = torch.randint(0, 256, (WARP_B, T_STEPS, WARP_SRC, WARP_SRC),
+    planes = T_STEPS + (3 if pk_maps else 0)
+    frames = torch.randint(0, 256, (WARP_B, planes, WARP_SRC, WARP_SRC),
                            generator=gen, dtype=torch.uint8)
     masks = torch.randint(0, 2, (WARP_B, WARP_SRC, WARP_SRC), generator=gen,
                           dtype=torch.uint8)
@@ -400,45 +420,56 @@ def warp_inputs(device):
 
 
 def warp_phase(device, quick: bool):
-    """K2 against its plain version at the training shape; timings of
-    kernel, plain version and F.grid_sample. Returns the kernels-line
-    entry."""
+    """K2 against its plain version at the training shape, without PK maps
+    (Cs=9) and with them (Cs=12); timings of kernel, plain version and
+    F.grid_sample. Returns the kernels-line entry (Cs=9, with the Cs=12
+    figures under "pk_shape")."""
     import torch
 
     from stf_unet_tpu_torch.ops.kernels.warp import warp, warp_plain
 
-    aug, stacked, gy, gx, valid = warp_inputs(device)
-    args = (stacked, gy, gx, valid, aug.alpha, aug.beta)
-    bil, near = warp(*args)
-    bil_p, near_p = warp_plain(*args)
-    torch.cuda.synchronize()
-    err = (bil - bil_p).abs().max().item()
-    near_diff = int((near != near_p).sum().item())
-    check(bool(torch.isfinite(bil).all()), "warp: non-finite output")
-    check(near_diff == 0, f"warp: {near_diff} nearest (label) values "
-                          f"differ from the plain version")
-    check(err <= WARP_TOL, f"warp: bilinear max abs err {err} > {WARP_TOL}")
-    line = {"kernel": "warp", "B": WARP_B, "Cs": stacked.shape[1],
-            "src": WARP_SRC, "out": gy.shape[-1], "max_abs_err": err,
-            "nearest_mismatches": near_diff, "tol": WARP_TOL}
-    entry = {"max_abs_err": err, "ms": None, "plain_ms": None,
-             "bound_ms": None, "bound_by": None, "library_ms": None,
-             "shapes": [{"B": WARP_B, "Cs": stacked.shape[1],
-                         "H": WARP_SRC, "W": WARP_SRC,
-                         "Ho": gy.shape[1], "Wo": gy.shape[2]}]}
-    if not quick:
-        nbytes = (stacked.numel() + 4 * (gy.numel() + gx.numel()
-                                         + valid.numel())
-                  + 4 * (bil.numel() + near.numel()))
-        bms, by = bound_ms(nbytes, 0.0, "f32")
-        entry.update(ms=cuda_ms(lambda: warp(*args)),
-                     plain_ms=cuda_ms(lambda: warp_plain(*args), iters=5),
-                     bound_ms=bms, bound_by=by,
-                     library_ms=grid_sample_ms(stacked, gy, gx))
-        line.update(kernel_ms=entry["ms"], plain_ms=entry["plain_ms"],
-                    bound_us=bms * 1e3, bound_by=by,
-                    library_ms=entry["library_ms"])
-    print(json.dumps(line), flush=True)
+    entries = []
+    for pk_maps in (False, True):
+        aug, stacked, gy, gx, valid = warp_inputs(device, pk_maps)
+        args = (stacked, gy, gx, valid, aug.alpha, aug.beta)
+        bil, near = warp(*args)
+        bil_p, near_p = warp_plain(*args)
+        torch.cuda.synchronize()
+        cs = stacked.shape[1]
+        err = (bil - bil_p).abs().max().item()
+        near_diff = int((near != near_p).sum().item())
+        check(bool(torch.isfinite(bil).all()),
+              f"warp Cs={cs}: non-finite output")
+        check(near_diff == 0, f"warp Cs={cs}: {near_diff} nearest (label) "
+                              f"values differ from the plain version")
+        check(err <= WARP_TOL, f"warp Cs={cs}: bilinear max abs err {err} "
+                               f"> {WARP_TOL}")
+        line = {"kernel": "warp", "B": WARP_B, "Cs": cs, "src": WARP_SRC,
+                "out": gy.shape[-1], "max_abs_err": err,
+                "nearest_mismatches": near_diff, "tol": WARP_TOL}
+        entry = {"max_abs_err": err, "ms": None, "plain_ms": None,
+                 "bound_ms": None, "bound_by": None, "library_ms": None,
+                 "shapes": [{"B": WARP_B, "Cs": cs, "H": WARP_SRC,
+                             "W": WARP_SRC, "Ho": gy.shape[1],
+                             "Wo": gy.shape[2]}]}
+        if not quick:
+            nbytes = (stacked.numel() + 4 * (gy.numel() + gx.numel()
+                                             + valid.numel())
+                      + 4 * (bil.numel() + near.numel()))
+            bms, by = bound_ms(nbytes, 0.0, "f32")
+            entry.update(ms=cuda_ms(lambda: warp(*args)),
+                         plain_ms=cuda_ms(lambda: warp_plain(*args),
+                                          iters=5),
+                         bound_ms=bms, bound_by=by,
+                         library_ms=grid_sample_ms(stacked, gy, gx))
+            line.update(kernel_ms=entry["ms"], plain_ms=entry["plain_ms"],
+                        bound_us=bms * 1e3, bound_by=by,
+                        library_ms=entry["library_ms"])
+        print(json.dumps(line), flush=True)
+        entries.append(entry)
+    entry, pk_entry = entries
+    entry["max_abs_err"] = max(entry["max_abs_err"], pk_entry["max_abs_err"])
+    entry["pk_shape"] = pk_entry
     return entry
 
 
@@ -461,6 +492,100 @@ def grid_sample_ms(stacked, gy, gx) -> float:
                       align_corners=True)
 
     return cuda_ms(both)
+
+
+# K4 at the PK fit's shapes (T=8 time points, Q=700 grid points): a full
+# voxel chunk, the last chunk of a 256^2 synthetic volume (41,719 tissue
+# voxels = 2 x 16384 + 8951) and a small one. Kernel vs plain version, per
+# output: max |difference| <= TOFTS_ATOL + TOFTS_RTOL * max |plain value|
+# (the same f32 terms summed over 700 grid points in another order, and
+# expf's last bit; the JAX package holds its interpret-mode kernel to the
+# XLA pair at these limits, tests/test_pk.py).
+TOFTS_N = (16384, 8951, 256)
+TOFTS_RTOL, TOFTS_ATOL = 1e-5, 1e-6
+# The SFU's exponential rate on compute capability 9.0, per SM and clock.
+SFU_EXP_PER_CLOCK = 16
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def tofts_rates(gen, n: int, device):
+    """Rates K/ve spread over [0, 1000] (the clamp box allows K <= 1, ve >=
+    0.001): half log-uniform over [1e-3, 1e3], half uniform, one 0."""
+    import torch
+
+    half = n // 2
+    log_part = 10.0 ** (torch.rand((half,), generator=gen) * 6 - 3)
+    lin_part = torch.rand((n - half,), generator=gen) * 1000
+    rate = torch.cat([log_part, lin_part])[torch.randperm(n, generator=gen)]
+    rate[0] = 0.0
+    return rate.to(device)
+
+
+def tofts_phase(device, quick: bool):
+    """K4 against its plain version at the PK fit's voxel counts; timings
+    of kernel and plain version at a full chunk, its bound and the SFU
+    floor. Returns the kernels-line entry."""
+    import torch
+
+    from stf_unet_tpu_torch.core.config import PKConfig
+    from stf_unet_tpu_torch.ops.kernels.tofts import (tofts_sums,
+                                                      tofts_sums_plain)
+    from stf_unet_tpu_torch.pk.aif import make_aif
+    from stf_unet_tpu_torch.pk.tofts import ToftsQuadrature
+
+    cfg = PKConfig()
+    quad = ToftsQuadrature.build(cfg.time_points, make_aif(cfg.aif_method),
+                                 cfg.dt, device=device)
+    t_steps, q = quad.lags.shape
+    gen = torch.Generator().manual_seed(4)
+    entry = {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
+             "bound_ms": None, "bound_by": None, "library_ms": None,
+             "shapes": [{"N": TOFTS_N[0], "T": t_steps, "Q": q}]}
+    for n in TOFTS_N:
+        rate = tofts_rates(gen, n, device)
+        args = (rate, quad.lags, quad.weights, quad.wlags)
+        got = tofts_sums(*args)
+        want = tofts_sums_plain(*args)
+        torch.cuda.synchronize()
+        line = {"kernel": "tofts_sums", "N": n, "T": t_steps, "Q": q,
+                "rtol": TOFTS_RTOL, "atol": TOFTS_ATOL}
+        for name, g, w in zip(("s", "s_lag"), got, want):
+            check(g.shape == w.shape == (n, t_steps),
+                  f"tofts_sums N={n} {name}: shape {tuple(g.shape)}")
+            check(bool(torch.isfinite(g).all()),
+                  f"tofts_sums N={n}: non-finite {name}")
+            err = (g - w).abs().max().item()
+            scale = w.abs().max().item()
+            line[f"{name}_max_abs_err"] = err
+            line[f"{name}_max_abs"] = scale
+            check(err <= TOFTS_ATOL + TOFTS_RTOL * scale,
+                  f"tofts_sums N={n} {name}: max abs err {err} > "
+                  f"{TOFTS_ATOL} + {TOFTS_RTOL} * {scale}")
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if n == TOFTS_N[0] and not quick:
+            elems = n * t_steps * q
+            nbytes = 4 * (n + 3 * t_steps * q + 2 * n * t_steps)
+            bms, by = bound_ms(nbytes, 6.0 * elems, "f32")
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            clock = sm_clock_hz()
+            sfu_ms = elems / (SFU_EXP_PER_CLOCK * sms * clock) * 1e3
+            entry.update(ms=cuda_ms(lambda: tofts_sums(*args), iters=50),
+                         plain_ms=cuda_ms(lambda: tofts_sums_plain(*args),
+                                          iters=5),
+                         bound_ms=bms, bound_by=by, sfu_floor_ms=sfu_ms,
+                         sfu_floor_clock_mhz=clock / 1e6)
+            line.update(kernel_ms=entry["ms"], plain_ms=entry["plain_ms"],
+                        bound_us=bms * 1e3, bound_by=by,
+                        sfu_floor_us=sfu_ms * 1e3, library_ms=None)
+        print(json.dumps(line), flush=True)
+    return entry
 
 
 def serving_phase(tmpdir: str):
@@ -494,9 +619,7 @@ def serving_phase(tmpdir: str):
             mask = client.segment(frames[i], full_size=i % 4 == 3)
             return mask, (time.perf_counter() - t) * 1e3
 
-        kernels = counters()
-        for fn in kernels.values():
-            fn.launches = 0
+        kernels = reset_counts()
         t0 = time.perf_counter()
         with ThreadPoolExecutor(N_REQUESTS) as ex:
             results = list(ex.map(one, range(N_REQUESTS)))
@@ -562,10 +685,6 @@ def breakdown_phase(server, frames):
             wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_ms(e):
-        return (getattr(e, "device_time_total", 0.0)
-                or getattr(e, "cuda_time_total", 0.0)) / 1e3
 
     busy_ms = sum(dev_ms(e) for e in kernels)
     lstm_ms = sum(dev_ms(e) for e in kernels if "stf::lstm_last" in e.key)
@@ -672,10 +791,19 @@ def counters():
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x import lstm_last_x
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x_bwd import (
         lstm_last_x_bwd)
+    from stf_unet_tpu_torch.ops.kernels.tofts import tofts_sums
     from stf_unet_tpu_torch.ops.kernels.warp import warp
 
     return {"lstm_last_x": lstm_last_x, "lstm_last": lstm_last,
-            "lstm_last_x_bwd": lstm_last_x_bwd, "warp": warp}
+            "lstm_last_x_bwd": lstm_last_x_bwd, "warp": warp,
+            "tofts_sums": tofts_sums}
+
+
+def reset_counts() -> dict:
+    kernels = counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    return kernels
 
 
 def write_tree(tmpdir: str) -> str:
@@ -686,11 +814,11 @@ def write_tree(tmpdir: str) -> str:
     make_synthetic_breadm(data, splits=("training",),
                           patients_per_split=TRAIN_PATIENTS,
                           slices_per_patient=TRAIN_SLICES, size=TRAIN_SRC,
-                          seed=0)
+                          sequence_prefix="SUB", seed=0)
     make_synthetic_breadm(data, splits=("val", "test"),
                           patients_per_split=EVAL_PATIENTS,
                           slices_per_patient=TRAIN_SLICES, size=TRAIN_SRC,
-                          seed=1)
+                          sequence_prefix="SUB", seed=1)
     print(f"synthetic tree written in {time.perf_counter() - t0:.3f} s",
           flush=True)
     return data
@@ -704,13 +832,12 @@ def training_phase(tmpdir: str, data: str, device: str = "cuda"):
 
     from stf_unet_tpu_torch.cli import train as train_cli
 
-    kernels = counters()
-    for fn in kernels.values():
-        fn.launches = 0
+    kernels = reset_counts()
     weights = os.path.join(tmpdir, "weights")
     t0 = time.perf_counter()
     result = train_cli.run([
         "--data-path", data, "--model", "stflstm", "--amp", "true",
+        "--use-subtraction",
         "--batch-size", str(TRAIN_BATCH), "--epochs", str(TRAIN_EPOCHS),
         "--eval-batch-size", str(TRAIN_BATCH), "--seed", "0",
         "--data-base-size", str(TRAIN_SRC),
@@ -740,9 +867,10 @@ def training_phase(tmpdir: str, data: str, device: str = "cuda"):
     return launches, result
 
 
-def train_objects(data: str, dtype, device, batch: int):
+def train_objects(data: str, dtype, device, batch: int, pk: bool = False):
     """Model (seeded, full width), optimizer, augmentation and one host
-    batch of the synthetic tree, as cli/train builds them."""
+    batch of the synthetic tree, as cli/train builds them; with pk, the
+    PK-maps model and batches that carry the maps."""
     import torch
 
     from stf_unet_tpu_torch.core.config import (DataConfig, ModelConfig,
@@ -753,23 +881,24 @@ def train_objects(data: str, dtype, device, batch: int):
     from stf_unet_tpu_torch.models.registry import create_model
     from stf_unet_tpu_torch.train.state import TrainState, make_optimizer
 
-    cfg = DataConfig(data_path=data, base_size=TRAIN_SRC,
-                     crop_size=TRAIN_CROP)
-    index = DatasetIndex(data, "train", cfg.resolved_sequence_types)
-    host = next(iter(HostLoader(index, batch, shuffle=False,
+    cfg = DataConfig(data_path=data, use_subtraction=True, use_pk_maps=pk,
+                     base_size=TRAIN_SRC, crop_size=TRAIN_CROP)
+    index = DatasetIndex(data, "train", cfg.resolved_sequence_types,
+                         use_pk_maps=pk)
+    host = next(iter(HostLoader(index, batch, shuffle=False, use_pk_maps=pk,
                                 prefetch=0).epoch(0)))
     torch.manual_seed(0)
-    model = create_model(ModelConfig(), dtype=dtype).to(device)
+    model = create_model(ModelConfig(use_pk_maps=pk), dtype=dtype).to(device)
     state = TrainState(model, make_optimizer(OptimConfig(), model,
                                              torch.device(device)))
     return state, TrainAugment(cfg), host
 
 
-def step_phase(data: str, device: str = "cuda"):
+def step_phase(data: str, device: str = "cuda", pk: bool = False):
     """bf16 training steps at batch 16 on one fixed batch: the loss of
     repeated steps must fall; ms per step and samples/s over back-to-back
     steps; a torch.profiler view of one step (kernel time by name, the
-    device's idle share)."""
+    device's idle share). pk: the PK-maps model on batches with maps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -777,7 +906,7 @@ def step_phase(data: str, device: str = "cuda"):
     from stf_unet_tpu_torch.train.loop import train_step
 
     state, augment, host = train_objects(data, torch.bfloat16, device,
-                                         TRAIN_BATCH)
+                                         TRAIN_BATCH, pk=pk)
     dev = torch.device(device)
 
     def step():
@@ -807,15 +936,11 @@ def step_phase(data: str, device: str = "cuda"):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
 
-    def dev_ms(e):
-        return (getattr(e, "device_time_total", 0.0)
-                or getattr(e, "cuda_time_total", 0.0)) / 1e3
-
     busy = sum(dev_ms(e) for e in kernels)
     ours = sum(dev_ms(e) for e in kernels if "stf::" in e.key)
     top = sorted(kernels, key=dev_ms, reverse=True)[:12]
     print(json.dumps({"train_steps": {
-        "batch": TRAIN_BATCH, "fixed_batch_losses": losses,
+        "pk_maps": pk, "batch": TRAIN_BATCH, "fixed_batch_losses": losses,
         "ms_per_step": step_ms,
         "samples_per_s": TRAIN_BATCH * 1e3 / step_ms,
         "profiled_step_wall_ms": prof_ms,
@@ -923,6 +1048,228 @@ def train_path_phase(data: str, device: str = "cuda"):
               f"the plain f32 path's {per_p[n]} + {PATH_ERR_FLOOR}")
 
 
+# PK maps phase: the tree's 12 volumes (8 training, 2 val, 2 test
+# patients) through `python -m stf_unet_tpu_torch.pk.maps` (LM, 50
+# iterations); one volume's maps through K4 against the plain sums: within
+# PK_MAP_TOL on at least PK_MAP_SHARE of its tissue voxels (two correct LM
+# runs may part where a step's two costs nearly tie; the JAX package's
+# solver branches on the same `cost_cand < cost_p`).
+PK_VOLUMES = TRAIN_PATIENTS + 2 * EVAL_PATIENTS
+PK_MAP_TOL, PK_MAP_SHARE = 1e-3, 0.99
+# PK training: cli/train with --use-pk-maps, 2 epochs = 8 steps; then
+# PK_REQUESTS requests of T + 3 planes to the best checkpoint.
+PK_EPOCHS = 2
+PK_REQUESTS = 8
+
+
+def pk_volumes(data: str):
+    """(split, patient, frames, tissue voxel count) of every volume the PK
+    map generation fits."""
+    from stf_unet_tpu_torch.core.config import PKConfig
+    from stf_unet_tpu_torch.pk.fit import preprocess_images
+    from stf_unet_tpu_torch.pk.maps import _load_patient_frames
+
+    out = []
+    for split in ("training", "val", "test"):
+        images = os.path.join(data, "seg", split, "images")
+        for patient in sorted(os.listdir(images)):
+            frames = _load_patient_frames(os.path.join(images, patient))
+            mask = preprocess_images(frames, PKConfig())[1]
+            out.append((split, patient, frames, int(mask.sum())))
+    return out
+
+
+def pk_maps_phase(data: str):
+    """pk.maps.main (LM) over the tree: finite maps for every volume, K4
+    launched 2 x lm_iters times per voxel chunk; then, outside the counted
+    run, a profiler view of one chunk and one volume through K4 against
+    the plain sums. Returns the launch counts of the run."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stf_unet_tpu_torch.core.config import PKConfig
+    from stf_unet_tpu_torch.pk import maps as pk_maps
+    from stf_unet_tpu_torch.pk.aif import make_aif
+    from stf_unet_tpu_torch.pk.fit import CHUNK, fit_lm, preprocess_images
+    from stf_unet_tpu_torch.pk.tofts import ToftsQuadrature
+
+    cfg = PKConfig()
+    volumes = pk_volumes(data)
+    check(len(volumes) == PK_VOLUMES, f"{len(volumes)} PK volumes, "
+                                      f"expected {PK_VOLUMES}")
+    chunks = sum(math.ceil(n / CHUNK) for *_, n in volumes)
+    kernels = reset_counts()
+    t0 = time.perf_counter()
+    pk_maps.main([data, "--solver", "lm", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    check(launches["tofts_sums"] == chunks * 2 * cfg.lm_iters,
+          f"K4 launched {launches['tofts_sums']} times, expected "
+          f"{chunks} chunks x 2 x {cfg.lm_iters}")
+    for split, patient, _, _ in volumes:
+        out = os.path.join(data, "seg", split, "pk_maps", patient)
+        for name in pk_maps.PARAM_NAMES:
+            check(os.path.isfile(os.path.join(out, f"{name}.png")),
+                  f"{split}/{patient}: no {name}.png")
+            raw = np.load(os.path.join(out, f"{name}_raw.npy"))
+            check(raw.shape == (TRAIN_SRC, TRAIN_SRC)
+                  and bool(np.isfinite(raw).all()),
+                  f"{split}/{patient}: {name} map {raw.shape}, finite "
+                  f"{bool(np.isfinite(raw).all())}")
+        check(os.path.isfile(os.path.join(out, "combined_map.png")),
+              f"{split}/{patient}: no combined_map.png")
+
+    # one full chunk of the first volume, profiled (not counted)
+    _, _, frames, _ = volumes[0]
+    imgs, mask = preprocess_images(frames, cfg)
+    curves = imgs.numpy().transpose(1, 2, 0)[mask.numpy()]  # [voxels, T]
+    chunk = curves[:CHUNK]
+    quad = ToftsQuadrature.build(cfg.time_points, make_aif(cfg.aif_method),
+                                 cfg.dt, device="cuda")
+    fit_lm(chunk, quad, cfg)
+    t0 = time.perf_counter()
+    fit_lm(chunk, quad, cfg)  # ends in a copy to the host
+    chunk_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit_lm(chunk, quad, cfg)
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(dev_ms(e) for e in kern)
+    k4 = sum(dev_ms(e) for e in kern if "tofts_sums_kernel" in e.key)
+    top = sorted(kern, key=dev_ms, reverse=True)[:8]
+
+    # the first volume's tissue voxels through K4 and the plain sums
+    maps_k = fit_lm(curves, quad, cfg, backend="auto")    # [voxels, 3]
+    maps_p = fit_lm(curves, quad, cfg, backend="plain")
+    diff = np.abs(maps_k - maps_p).T                      # [3, voxels]
+    share = float((diff <= PK_MAP_TOL).all(axis=0).mean())
+    print(json.dumps({"pk_maps": {
+        "volumes": len(volumes), "tissue_voxels": [n for *_, n in volumes],
+        "chunks": chunks, "lm_iters": cfg.lm_iters, "wall_s": wall,
+        "s_per_volume": wall / len(volumes), "launches": launches,
+        "chunk_voxels": int(chunk.shape[0]), "chunk_ms": chunk_ms,
+        "chunk_ms_per_lm_iter": chunk_ms / cfg.lm_iters,
+        "profiled_chunk_wall_ms": prof_ms,
+        "kernel_busy_ms": busy if busy else "not measured",
+        "k4_ms": k4, "k4_share_of_device_time": (k4 / busy) if busy
+        else "not measured",
+        "device_idle_share_profiled": (1 - busy / prof_ms) if busy
+        else "not measured",
+        "device_idle_share_chunk": (1 - busy / chunk_ms) if busy
+        else "not measured",
+        "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                         "ms": dev_ms(e)} for e in top],
+        "kernel_vs_plain_maps": {
+            "tissue_voxels": len(curves), "tol": PK_MAP_TOL,
+            "share_within_tol": share,
+            "max_abs_diff": [float(d.max()) for d in diff]}}}), flush=True)
+    check(bool(np.isfinite(maps_k).all()), "K4-path maps not finite")
+    check(share >= PK_MAP_SHARE, f"K4-path maps within {PK_MAP_TOL} of the "
+                                 f"plain path's on {share} of tissue voxels "
+                                 f"< {PK_MAP_SHARE}")
+    return launches
+
+
+def pk_training_phase(tmpdir: str, data: str):
+    """cli/train with --use-pk-maps at full width, bf16: finite losses,
+    >= 8 steps over >= 2 epochs, K1, K1b, K2 and K3 launched. Returns
+    (launch counts, path of the best checkpoint)."""
+    import math
+
+    from stf_unet_tpu_torch.cli import train as train_cli
+
+    kernels = reset_counts()
+    weights = os.path.join(tmpdir, "weights_pk")
+    t0 = time.perf_counter()
+    result = train_cli.run([
+        "--data-path", data, "--model", "stflstm", "--amp", "true",
+        "--use-subtraction", "--use-pk-maps",
+        "--batch-size", str(TRAIN_BATCH), "--epochs", str(PK_EPOCHS),
+        "--eval-batch-size", str(TRAIN_BATCH), "--seed", "0",
+        "--data-base-size", str(TRAIN_SRC),
+        "--data-crop-size", str(TRAIN_CROP),
+        "--save-dir", weights, "--output-dir", os.path.join(tmpdir, "out_pk"),
+        "--print-freq", "1", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    losses = [e["train_loss"] for e in result["epochs"]]
+    check(len(result["epochs"]) >= 2, f"PK: trained {len(result['epochs'])} "
+                                      f"epochs, expected >= 2")
+    check(result["steps"] >= 8, f"PK: trained {result['steps']} steps, "
+                                f"expected >= 8")
+    check(all(math.isfinite(v) for v in losses),
+          f"PK: non-finite training loss: {losses}")
+    for name in TRAIN_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched while "
+                                  f"training on PK maps")
+    best = os.path.join(weights, "stflstm_best_model_pk.pth")
+    check(os.path.isfile(best), f"no PK best checkpoint at {best}")
+    print(json.dumps({"pk_training": {
+        "wall_s": wall, "epochs": result["epochs"],
+        "steps": result["steps"], "best_dice": result["best_dice"],
+        "test_dice": result["test"]["dice"],
+        "launches": launches}}), flush=True)
+    return launches, best
+
+
+def pk_serving_phase(weights: str):
+    """The PK checkpoint through cli/serve.build_server: PK_REQUESTS
+    concurrent requests of T + 3 planes, each answered with a mask of the
+    expected shape; K1 and K3 launched. Returns the launch counts."""
+    import torch
+
+    from stf_unet_tpu_torch.cli.serve import build_server, parse_args
+    from stf_unet_tpu_torch.serve.client import SegmentationClient
+
+    server = build_server(parse_args(
+        ["--weights", weights, "--port", "0", "--dtype", "bf16",
+         "--max-batch", "8", "--batch-window-ms", "20",
+         "--crop-size", str(CROP), "--device", "cuda"]))
+    check(server.engine.model.use_pk_maps, "the PK checkpoint did not load "
+                                           "as a PK model")
+    rng = np.random.default_rng(1)
+    planes = [rng.integers(0, 256, (T_STEPS + 3, TRAIN_SRC, TRAIN_SRC),
+                           dtype=np.uint8) for _ in range(PK_REQUESTS)]
+    server.start()
+    try:
+        client = SegmentationClient("http://%s:%d" % server.address,
+                                    timeout=300)
+        kernels = reset_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(PK_REQUESTS) as ex:
+            masks = list(ex.map(
+                lambda i: client.segment(planes[i], full_size=i % 2 == 1),
+                range(PK_REQUESTS)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        metrics = client.metrics()
+    finally:
+        server.stop()
+    for i, mask in enumerate(masks):
+        want = (TRAIN_SRC, TRAIN_SRC) if i % 2 == 1 else (CROP, CROP)
+        check(mask.shape == want, f"PK request {i}: mask {mask.shape}, "
+                                  f"expected {want}")
+        check(int(mask.max()) <= 1, f"PK request {i}: class out of range")
+    for name in ("lstm_last_x", "lstm_last"):
+        check(launches[name] > 0, f"kernel {name} never launched while "
+                                  f"serving the PK model")
+    print(json.dumps({"pk_serving": {
+        "requests": PK_REQUESTS, "planes": T_STEPS + 3, "wall_s": wall,
+        "server_latency_ms": metrics["latency_ms"],
+        "errors": metrics["errors"], "batches": metrics["batches"],
+        "seen_shapes": metrics["seen_shapes"],
+        "launches": launches}}), flush=True)
+    check(metrics["errors"] == 0, f"PK serving: {metrics['errors']} errors")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -958,6 +1305,7 @@ def main() -> int:
     agg = kernel_phase(device, args.quick)
     agg["lstm_last_x_bwd"] = lstm_bwd_phase(device, args.quick)
     agg["warp"] = warp_phase(device, args.quick)
+    agg["tofts_sums"] = tofts_phase(device, args.quick)
     if args.quick:
         print("quick: kernels build and agree with their plain versions")
         return 0
@@ -976,6 +1324,14 @@ def main() -> int:
         train_launches, _ = training_phase(tmpdir, data)
         step_phase(data)
         train_path_phase(data)
+        torch.cuda.empty_cache()
+        # the PK path: maps, then training and serving on them
+        pk_runs = [pk_maps_phase(data)]
+        launches, best = pk_training_phase(tmpdir, data)
+        pk_runs += [launches, pk_serving_phase(best)]
+        step_phase(data, pk=True)
+    pk_launches = {name: sum(run[name] for run in pk_runs)
+                   for name in counters()}
 
     train_file = "stf_unet_tpu/ops/pallas/lstm_train_kernel.py"
     kernels = [
@@ -991,18 +1347,24 @@ def main() -> int:
         {"name": "warp", "route": "cuda",
          "source": "stf_unet_tpu_torch/csrc/warp.cu",
          "replaces": "stf_unet_tpu/ops/pallas/warp_kernel.py:204"},
+        {"name": "tofts_sums", "route": "cuda",
+         "source": "stf_unet_tpu_torch/csrc/tofts_sums.cu",
+         "replaces": "stf_unet_tpu/ops/pallas/tofts_kernel.py:42"},
     ]
+    dtypes = {"warp": "uint8 in, f32 out", "tofts_sums": "f32"}
     for k in kernels:
         a = agg[k["name"]]
         by_path = {"serve": serve_launches[k["name"]],
-                   "train": train_launches[k["name"]]}
+                   "train": train_launches[k["name"]],
+                   "pk": pk_launches[k["name"]]}
         k.update(launches=sum(by_path.values()), launches_by_path=by_path,
                  max_abs_err=a["max_abs_err"], ms=a["ms"],
                  plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
                  bound_by=a["bound_by"], library_ms=a["library_ms"],
-                 shapes=a["shapes"],
-                 dtype="uint8 in, f32 out" if k["name"] == "warp"
-                 else "bf16")
+                 shapes=a["shapes"], dtype=dtypes.get(k["name"], "bf16"))
+        for extra in ("pk_shape", "sfu_floor_ms", "sfu_floor_clock_mhz"):
+            if extra in a:
+                k[extra] = a[extra]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -51,14 +51,19 @@ def restore_for_inference(model_name: str, weights: str, *,
                           ) -> Tuple[nn.Module, DataConfig, ModelConfig,
                                      dict]:
     """Build the model around a checkpoint's weights, in eval mode on
-    `device`. The class count comes from the checkpoint's head."""
+    `device`. The class count comes from the checkpoint's head; a PK
+    checkpoint (pk_fusion convs) is recognised, its map count read from
+    conv1's input channels."""
     dev = resolve_device(device)
     sd, meta = load_reference_checkpoint(weights)
     data_cfg = DataConfig(crop_size=crop_size or DataConfig.crop_size)
+    use_pk = any(k.startswith("pk_fusion") for k in sd)
     model_cfg = ModelConfig(
         model=model_name, num_classes=int(sd["final.weight"].shape[0]) - 1,
         time_steps=len(data_cfg.resolved_sequence_types),
-        use_pk_maps=any(k.startswith("pk_fusion") for k in sd))
+        use_pk_maps=use_pk,
+        pk_channels=int(sd["conv1.weight"].shape[1]) - 1 if use_pk
+        else ModelConfig.pk_channels)
     set_precision_policy()
     model = create_model(model_cfg, dtype=DTYPES[dtype])
     model.load_state_dict(sd, strict=True)

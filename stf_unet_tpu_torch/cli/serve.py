@@ -9,7 +9,9 @@ Usage: python -m stf_unet_tpu_torch.cli.serve --weights model.pth
 
 --weights is a reference-layout checkpoint, {"model": state_dict,
 "epoch": N}: `python -m stf_unet_tpu.cli.migrate out.pth --model stflstm
---save-dir <jax run> --reverse` writes one from a JAX checkpoint.
+--save-dir <jax run> --reverse` writes one from a JAX checkpoint. A PK
+checkpoint (trained with --use-pk-maps) takes requests of T + 3 planes:
+the frames, then the Ktrans, ve and vp maps.
 
 Client: stf_unet_tpu_torch.serve.client.SegmentationClient.
 """
@@ -52,7 +54,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def build_server(args: argparse.Namespace) -> SegmentationServer:
     """Load the model, build the (not yet started) server and warm every
     batch bucket at the served geometry."""
-    model, data_cfg, _, meta = restore_for_inference(
+    model, data_cfg, model_cfg, meta = restore_for_inference(
         args.model, args.weights, crop_size=args.crop_size,
         dtype=args.dtype, device=args.device)
     print(f"serving {args.weights} (epoch {meta.get('epoch', '?')}) on "
@@ -61,8 +63,10 @@ def build_server(args: argparse.Namespace) -> SegmentationServer:
         model, data_cfg, model_name=args.model, host=args.host,
         port=args.port, max_batch=args.max_batch,
         window_ms=args.batch_window_ms, device=args.device)
-    server.engine.warmup(len(data_cfg.resolved_sequence_types),
-                         data_cfg.crop_size, data_cfg.crop_size)
+    # a PK checkpoint takes the T frames and then its maps (T + 3 planes)
+    planes = model_cfg.time_steps + (model_cfg.pk_channels
+                                     if model_cfg.use_pk_maps else 0)
+    server.engine.warmup(planes, data_cfg.crop_size, data_cfg.crop_size)
     return server
 
 

@@ -3,9 +3,11 @@ ref:train.py:124-401).
 
     python -m stf_unet_tpu_torch.cli.train --data-path <BreaDM root> \\
         [--model stflstm] [--amp true] [--batch-size 16] [--epochs 100] \\
+        [--use-subtraction --use-pk-maps [--generate-pk-maps]] \\
         [--device cuda|cpu] [--resume latest] ...
 
-Dataset index -> model, AdamW and the warmup-poly schedule -> optional
+Optional PK map fitting (--generate-pk-maps, pk/maps.py) -> dataset
+index -> model, AdamW and the warmup-poly schedule -> optional
 resume -> epochs of (train, evaluate, results file, latest/best
 checkpoints, early stop) -> a test-set pass with the best weights that
 prints its metrics. One device; CUDA unless --device cpu. The comparison
@@ -81,6 +83,12 @@ def main(cfg: TrainConfig) -> dict:
             cfg.output_dir,
             f"{cfg.model.model}_results_{stamp}{tag_suffix}.txt")
 
+    if cfg.generate_pk_maps:
+        print("Generating PK parameter maps...")
+        from stf_unet_tpu_torch.pk.maps import generate_pk_maps_for_dataset
+        generate_pk_maps_for_dataset(cfg.data.data_path, device=device)
+        print("PK parameter maps generation completed")
+
     seq_types = cfg.data.resolved_sequence_types
     print(f"Using sequence types: {list(seq_types)}")
     train_index = DatasetIndex(cfg.data.data_path, "train", seq_types,
@@ -89,10 +97,12 @@ def main(cfg: TrainConfig) -> dict:
                              use_pk_maps=cfg.data.use_pk_maps)
     if len(train_index) == 0:
         raise SystemExit("error: the training index is empty after "
-                         "warn-and-skip; check the warnings above")
+                         "warn-and-skip; check the warnings above (dataset "
+                         "layout / --use-pk-maps without generated pk_maps)")
 
     loader = HostLoader(train_index, cfg.batch_size, shuffle=True,
-                        seed=cfg.seed, prefetch=cfg.data.prefetch,
+                        seed=cfg.seed, use_pk_maps=cfg.data.use_pk_maps,
+                        prefetch=cfg.data.prefetch,
                         mask_format=cfg.data.mask_format)
     augment = TrainAugment(cfg.data)
     model_cfg = dataclasses.replace(cfg.model, time_steps=len(seq_types))
@@ -137,6 +147,7 @@ def main(cfg: TrainConfig) -> dict:
         metrics = evaluate(
             state.model,
             eval_batches_from_index(val_index, cfg.data,
+                                    use_pk_maps=cfg.data.use_pk_maps,
                                     batch_size=cfg.eval_batch_size),
             num_classes, data_cfg=cfg.data, device=device)
         dice = metrics["dice"]
@@ -186,6 +197,7 @@ def main(cfg: TrainConfig) -> dict:
     test_metrics = evaluate(
         state.model,
         eval_batches_from_index(test_index, cfg.data,
+                                use_pk_maps=cfg.data.use_pk_maps,
                                 batch_size=cfg.eval_batch_size),
         num_classes, data_cfg=cfg.data, device=device)
     print("Test Set Metrics:")

@@ -65,6 +65,8 @@ class ModelConfig:
     num_classes: int = 1
     time_steps: int = 8
     use_pk_maps: bool = False
+    # PK parameter maps (Ktrans, ve, vp) carried as extra input planes.
+    pk_channels: int = 3
     # {"auto", "scan", "fused", "last"}: see ops/lstm.pixel_lstm.
     lstm_backend: str = "auto"
 
@@ -111,6 +113,8 @@ class TrainConfig:
     # Per-class CE weights, comma-separated, one per TOTAL class.
     loss_class_weights: str = ""
     silent: bool = False
+    # Fit the PK maps of every split (pk/maps.py) before training.
+    generate_pk_maps: bool = False
     early_stop_patience: int = 20  # ref:train.py:171
     save_dir: str = "./save_weights"
     output_dir: str = "./output"
@@ -121,6 +125,32 @@ class TrainConfig:
     @property
     def tag_suffix(self) -> str:
         return "_pk" if self.data.use_pk_maps else ""
+
+
+@dataclass(frozen=True)
+class PKConfig:
+    """Extended-Tofts fitter settings (the JAX package's PKConfig, same
+    defaults; ref:pk_fitting.py:15-26,257,290-307)."""
+
+    aif_method: str = "population"  # {"population", "modified", "auto"}
+    aif_dose: float = 0.1
+    time_points: Sequence[float] = tuple(float(i) for i in range(8))
+    dt: float = 0.01
+    # Fit hyperparameters (ref:pk_fitting.py:290-307,316).
+    init_ktrans: float = 0.05
+    init_ve: float = 0.1
+    init_vp: float = 0.01
+    lr: float = 0.005
+    num_epochs: int = 100
+    # Physiological clamp box (ref:pk_fitting.py:303-307).
+    ktrans_bounds: Sequence[float] = (0.0, 1.0)
+    ve_bounds: Sequence[float] = (0.001, 0.5)
+    vp_bounds: Sequence[float] = (0.0, 0.2)
+    # Tissue mask threshold factor (ref:pk_fitting.py:180).
+    tissue_threshold_factor: float = 0.15
+    # {"lm", "adam"}: Levenberg-Marquardt (the fast path) or Adam.
+    solver: str = "lm"
+    lm_iters: int = 50
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -158,7 +188,6 @@ UNPORTED_FLAGS = {
     "--data-parallel": "data parallelism",
     "--spatial-parallel": "data parallelism",
     "--test-only": "cli/test.py",
-    "--generate-pk-maps": "PK",
     "--profile-dir": "long tail",
     "--nan-check": "long tail",
     "--jsonl-metrics": "long tail",
@@ -168,7 +197,6 @@ UNPORTED_FLAGS = {
     "--compile-cache-dir": "long tail",
     "--model-remat": "long tail",
     "--model-base-c": "vanilla UNet",
-    "--model-pk-channels": "PK",
 }
 
 

@@ -80,23 +80,47 @@ def decode_stack(paths: Sequence[str]) -> np.ndarray:
     return np.stack([_decode_grayscale(p) for p in paths])
 
 
+PK_PARAM_NAMES = ("ktrans", "ve", "vp")  # ref:my_dataset.py:203
+
+
+def load_pk_stack(pk_dir: str, h: int, w: int) -> np.ndarray:
+    """[3, H, W] uint8 ktrans/ve/vp stack from `pk_dir/{name}.png`.
+    Off-resolution maps NEAREST-resize to (h, w) (PIL, as
+    ref:my_dataset.py:214); missing or unreadable maps zero-fill
+    (ref:206-224)."""
+    maps = []
+    for name in PK_PARAM_NAMES:
+        path = f"{pk_dir}/{name}.png"
+        try:
+            arr = _decode_grayscale(path)
+            if arr.shape != (h, w):
+                arr = np.asarray(
+                    Image.fromarray(arr).resize((w, h), Image.NEAREST))
+        except OSError:  # missing or unreadable: zero-fill, as the reference
+            arr = np.zeros((h, w), dtype=np.uint8)
+        maps.append(arr)
+    return np.stack(maps)
+
+
 def load_sample_raw(rec: SampleRecord, use_pk_maps: bool = False,
                     mask_format: str = "binary"
                     ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
-    """-> (frames uint8 [T, H, W], mask uint8 [H, W], None).
+    """-> (frames uint8 [T, H, W], mask uint8 [H, W], pk uint8 [3, H, W]
+    or None).
 
     mask_format="binary": //255-binarized like the reference; "index":
-    mask pixels already hold class indices."""
-    if use_pk_maps:
-        raise NotImplementedError(
-            "PK maps are not ported yet (ROADMAP.md §1, 'PK')")
+    mask pixels already hold class indices. The PK maps come from the
+    record's pk_maps directory at the frames' size."""
     frames = decode_stack(rec.image_paths)
     with Image.open(rec.mask_path) as m:
         mask = np.asarray(m.convert("L"), dtype=np.uint16)
         if mask_format == "binary":
             mask = mask // 255
         mask = mask.astype(np.uint8)
-    return frames, mask, None
+    pk = None
+    if use_pk_maps:
+        pk = load_pk_stack(rec.pk_maps_path, *frames.shape[1:])
+    return frames, mask, pk
 
 
 @dataclass
@@ -106,6 +130,7 @@ class Batch:
     frames: np.ndarray          # [B, T, H, W] uint8
     masks: np.ndarray           # [B, H, W] uint8 (255 = canvas padding)
     sizes: np.ndarray           # [B, 2] valid (h, w) before padding
+    pk: Optional[np.ndarray] = None  # [B, 3, H, W] uint8 (0 = padding)
 
 
 def _pad_canvas(arrs: Sequence[np.ndarray], canvas: Tuple[int, int],
@@ -129,13 +154,15 @@ class HostLoader:
     visit the same samples in the same order."""
 
     def __init__(self, index: DatasetIndex, batch_size: int, *,
-                 shuffle: bool, seed: int = 0, drop_last: bool = False,
+                 shuffle: bool, seed: int = 0, use_pk_maps: bool = False,
+                 drop_last: bool = False,
                  canvas_multiple: int = 32, prefetch: int = 2,
                  mask_format: str = "binary"):
         self.index = index
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.use_pk_maps = use_pk_maps
         self.mask_format = mask_format
         self.drop_last = drop_last
         self.canvas_multiple = canvas_multiple
@@ -159,12 +186,15 @@ class HostLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def _make_batch(self, recs: List[SampleRecord]) -> Batch:
-        samples = [load_sample_raw(r, mask_format=self.mask_format)
+        samples = [load_sample_raw(r, self.use_pk_maps, self.mask_format)
                    for r in recs]
         sizes = np.asarray([s[0].shape[1:] for s in samples], dtype=np.int32)
         frames = _pad_canvas([s[0] for s in samples], self.canvas, fill=0)
         masks = _pad_canvas([s[1] for s in samples], self.canvas, fill=255)
-        return Batch(frames=frames, masks=masks, sizes=sizes)
+        pk = None
+        if self.use_pk_maps:
+            pk = _pad_canvas([s[2] for s in samples], self.canvas, fill=0)
+        return Batch(frames=frames, masks=masks, sizes=sizes, pk=pk)
 
     def epoch(self, epoch_num: int = 0,
               skip_batches: int = 0) -> Iterator[Batch]:

@@ -208,13 +208,18 @@ class TrainAugment:
         return _build_affine(*params)(line.view(-1, 1), line.view(1, -1))
 
     def __call__(self, gen: torch.Generator, frames: torch.Tensor,
-                 masks: torch.Tensor, sizes
+                 masks: torch.Tensor, sizes, pk: torch.Tensor = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """frames [B, T, H, W] uint8, masks [B, H, W] uint8, sizes [B, 2]
-        (valid h, w) -> (images [B, T, crop, crop, 1] float32 normalized,
-        targets [B, crop, crop] int64)."""
+        (valid h, w), pk [B, 3, H, W] uint8 or None -> (images [B, T(+3),
+        crop, crop, 1] float32 normalized, targets [B, crop, crop] int64).
+        The PK maps ride as extra planes after the frames
+        (ref:my_dataset.py:226-227): one warp call takes frames, maps and
+        mask under the same draw, and normalizes the maps like the
+        frames."""
         gy, gx = self.grids(gen, sizes, frames.device)
-        stacked = torch.cat([frames, masks.unsqueeze(1)], dim=1)
+        planes = [frames] if pk is None else [frames, pk]
+        stacked = torch.cat(planes + [masks.unsqueeze(1)], dim=1)
         valid = torch.as_tensor(sizes).to(frames.device, torch.float32)
         bil, near = warp(stacked, gy, gx, valid, alpha=self.alpha,
                          beta=self.beta)

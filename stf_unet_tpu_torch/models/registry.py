@@ -18,11 +18,12 @@ def create_model(cfg: ModelConfig,
         return STFLSTMUNet(num_classes=cfg.total_classes,
                            time_steps=cfg.time_steps,
                            use_pk_maps=cfg.use_pk_maps,
+                           pk_channels=cfg.pk_channels,
                            lstm_backend=cfg.lstm_backend, dtype=dtype)
     if cfg.model == "unet":
         raise NotImplementedError(
-            "the vanilla UNet is not ported yet (ROADMAP.md, 'Slices', "
-            "slice 3: vanilla UNet)")
+            "the vanilla UNet is not ported yet (ROADMAP.md §1, 'vanilla "
+            "UNet')")
     raise ValueError(f"Unknown model type: {cfg.model}")
 
 

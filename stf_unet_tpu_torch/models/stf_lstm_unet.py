@@ -12,14 +12,20 @@ Topology, as in the JAX package:
   * The logits are bilinearly upsampled (align_corners=True) to the input
     resolution and returned in float32 (the JAX package's fix of the
     reference's half-resolution head).
+  * With PK maps (use_pk_maps=True) the input carries the pk_channels maps
+    (Ktrans, ve, vp) as extra planes after the T frames. They are
+    concatenated to every frame's input (conv1 takes 1 + pk_channels
+    channels) and fused again after the encoder at each scale: resized to
+    the scale (align_corners bilinear), concatenated to the features and
+    brought back to the scale's width by a 1x1 conv `pk_fusion{i}`
+    (ref:117-121, 146-200).
 
 The encoder's modules sit at the top level of this module (conv1, bn1,
 layer1..layer4), as in the reference state_dict, so this class extends
 ResNet34Encoder rather than holding one.
 
 Dtype policy: parameters stay float32; `dtype` is the compute dtype that
-activations and (cast-on-use) weights run in. The PK-maps variant is not
-ported yet (ROADMAP.md).
+activations and (cast-on-use) weights run in.
 """
 
 from __future__ import annotations
@@ -71,17 +77,20 @@ class STFLSTMUNet(ResNet34Encoder):
     input_format = "time_sequence"
 
     def __init__(self, num_classes: int = 2, time_steps: int = 8,
-                 use_pk_maps: bool = False, lstm_backend: str = "auto",
+                 use_pk_maps: bool = False, pk_channels: int = 3,
+                 lstm_backend: str = "auto",
                  dtype: torch.dtype = torch.float32):
-        if use_pk_maps:
-            raise NotImplementedError(
-                "STF-LSTM-UNet with PK maps is not ported yet (ROADMAP.md, "
-                "'PK maps branch')")
-        super().__init__(in_channels=1)
+        extra = pk_channels if use_pk_maps else 0
+        super().__init__(in_channels=1 + extra)
+        self.pk_channels = extra
         self.num_classes = num_classes
         self.time_steps = time_steps
+        self.use_pk_maps = use_pk_maps
         self.compute_dtype = dtype
         for i, width in enumerate(_SCALE_WIDTHS):
+            if use_pk_maps:
+                setattr(self, f"pk_fusion{i + 1}",
+                        Conv2d(width + pk_channels, width, 1))
             setattr(self, f"lstm{i + 1}", PixelLSTM(width, lstm_backend))
         self.decoder4 = DecoderBlock(512, 256, 256)
         self.decoder3 = DecoderBlock(256, 128, 128)
@@ -95,14 +104,30 @@ class STFLSTMUNet(ResNet34Encoder):
             getattr(self, f"lstm{i + 1}").backend = backend
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """x: [B, T, H, W, C] frames (C=1 for DCE-MRI) -> {"out": float32
-        logits [B, H, W, num_classes]}, the JAX package's layout."""
-        bsz, t_steps, height, width, chans = x.shape
-        folded = (x.to(self.compute_dtype).permute(0, 1, 4, 2, 3)
-                  .reshape(bsz * t_steps, chans, height, width))
+        """x: [B, T(+pk_channels), H, W, C] frames (C=1 for DCE-MRI) ->
+        {"out": float32 logits [B, H, W, num_classes]}, the JAX package's
+        layout."""
+        bsz, total_steps, height, width, chans = x.shape
+        t_steps = total_steps - self.pk_channels
+        frames = x[:, :t_steps].to(self.compute_dtype).permute(0, 1, 4, 2, 3)
+        pk_maps = None
+        if self.use_pk_maps:
+            # [B, pk, H, W, 1] -> [B, pk, H, W], tiled onto every frame
+            pk_maps = x[:, t_steps:, :, :, 0]
+            frames = torch.cat([frames, pk_maps.to(self.compute_dtype)[
+                :, None].expand(bsz, t_steps, -1, -1, -1)], dim=2)
+        folded = frames.reshape(bsz * t_steps, frames.shape[2], height, width)
         fused = []
         for i, feat in enumerate(super().forward(folded)):
             _, c, h, w = feat.shape
+            if pk_maps is not None:
+                # the same 1x1 conv for every t, so the folded batch is the
+                # reference's per-t loop
+                pk_r = resize_bilinear_align_corners(pk_maps, h, w)
+                pk_r = pk_r.to(feat.dtype)[:, None].expand(
+                    bsz, t_steps, -1, -1, -1).reshape(bsz * t_steps, -1, h, w)
+                feat = getattr(self, f"pk_fusion{i + 1}")(
+                    torch.cat([feat, pk_r], dim=1))
             seq = feat.reshape(bsz, t_steps, c, h, w).permute(0, 1, 3, 4, 2)
             out = getattr(self, f"lstm{i + 1}")(seq)
             fused.append(out.permute(0, 3, 1, 2))

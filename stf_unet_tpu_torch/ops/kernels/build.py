@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("lstm_last_x", "lstm_last", "lstm_last_x_bwd", "warp")
+KERNELS = ("lstm_last_x", "lstm_last", "lstm_last_x_bwd", "warp",
+           "tofts_sums")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

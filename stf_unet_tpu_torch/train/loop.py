@@ -1,8 +1,9 @@
 """Train and eval loops (counterpart of stf_unet_tpu/train/loop.py;
 ref:train_utils/train_and_eval.py:316-411).
 
-A step: the host loader's raw uint8 batch moves to the device, the
-augmentation warps it there (kernel K2), the model runs in train mode
+A step: the host loader's raw uint8 batch (frames, mask and, with PK
+maps, the three maps) moves to the device, the augmentation warps it there
+(kernel K2), the model runs in train mode
 (pixel LSTMs through K1 / K1b at C <= 128 on CUDA), then the CE + dice
 criterion, backward, and one AdamW step at the schedule's lr. The loss of
 step s is read on the host while step s+1 runs, so the host does not wait
@@ -57,7 +58,9 @@ def train_step(state: TrainState, augment: TrainAugment, batch: Batch,
     device, lr used)."""
     frames = torch.from_numpy(batch.frames).to(device, non_blocking=True)
     masks = torch.from_numpy(batch.masks).to(device, non_blocking=True)
-    images, targets = augment(gen, frames, masks, batch.sizes)
+    pk = (None if batch.pk is None
+          else torch.from_numpy(batch.pk).to(device, non_blocking=True))
+    images, targets = augment(gen, frames, masks, batch.sizes, pk)
     lr = schedule(state.step)
     for group in state.optimizer.param_groups:
         group["lr"] = lr
@@ -132,17 +135,19 @@ def evaluate(model, eval_batches: Iterable, num_classes: int, *,
     }
 
 
-def eval_batches_from_index(index, cfg, *, batch_size: int = 1,
-                            prefetch: int = 2):
+def eval_batches_from_index(index, cfg, *, use_pk_maps: bool = False,
+                            batch_size: int = 1, prefetch: int = 2):
     """Eval-preprocessed uint8 (image, target) batches from a DatasetIndex:
     the PIL-parity resize runs on a background thread, normalization on
     the device (evaluate). batch_size > 1 groups same-shape samples, so a
-    batched evaluation equals the per-sample one."""
+    batched evaluation equals the per-sample one. With PK maps each image
+    carries the three maps after its frames."""
 
     def sample_iter():
         for rec in index.records:
-            frames, mask, _ = load_sample_raw(rec, mask_format=cfg.mask_format)
-            yield eval_preprocess(frames, mask, cfg, raw=True)
+            frames, mask, pk = load_sample_raw(rec, use_pk_maps,
+                                               cfg.mask_format)
+            yield eval_preprocess(frames, mask, cfg, pk, raw=True)
 
     def batch_iter():
         buckets: Dict[Tuple[int, ...], Tuple[list, list]] = {}

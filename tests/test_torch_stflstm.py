@@ -23,7 +23,6 @@ from stf_unet_tpu.serve.engine import InferenceEngine as JaxEngine
 from stf_unet_tpu.utils.torch_export import export_stflstm_state_dict
 from stf_unet_tpu_torch.core.config import DataConfig, ModelConfig
 from stf_unet_tpu_torch.models.registry import create_model, preprocess_input
-from stf_unet_tpu_torch.models.stf_lstm_unet import STFLSTMUNet
 from stf_unet_tpu_torch.serve.engine import InferenceEngine
 from stf_unet_tpu_torch.utils.weights import stflstm_state_dict_from_jax
 
@@ -184,8 +183,6 @@ def test_entry_points_refuse_missing_cuda(port_model):
 def test_unported_variants_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model(ModelConfig(model="unet"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        STFLSTMUNet(use_pk_maps=True)
 
 
 def _imported_roots(path):
@@ -207,11 +204,16 @@ TRAINING_MODULES = (
     "train/checkpoint.py", "train/early_stop.py", "train/loop.py",
     "train/schedule.py", "train/state.py",
 )
+# Modules of the PK slice.
+PK_MODULES = (
+    "pk/__init__.py", "pk/aif.py", "pk/fit.py", "pk/maps.py", "pk/tofts.py",
+    "ops/kernels/tofts.py",
+)
 
 
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "stf_unet_tpu_torch").rglob("*.py"))
-    for rel in TRAINING_MODULES:
+    for rel in TRAINING_MODULES + PK_MODULES:
         assert REPO / "stf_unet_tpu_torch" / rel in files, rel
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 40
