@@ -12,15 +12,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      evaluation batch 16, at crop 224, T=8); K1b (the LSTM backward)
      at the training shapes (C=64/N=50176, C=128/N=12544, a ragged N, one
      C=256 shape), all in bf16 and f32, and twice to show it is
-     deterministic, with the device time of its own launches (tile
-     kernel, dW pass, reductions) in one call at each timed training
-     shape, the host time of a call and the design's byte floor; K2 (the augmentation warp) at
+     deterministic, with the host time of a call and the design's byte
+     floor at each timed training shape; K2 (the augmentation warp) at
      B=16, 256^2 -> 224^2, with the frames and mask (Cs=9) and with the
      PK maps too (Cs=12);
      K4 (the PK fit's quadrature sums) at N = 16384, 8951 and 256 voxels,
      T=8, Q=700. Timings of kernel, plain version and a library
-     yardstick, and the training routing: one pixel LSTM's forward +
-     backward through K1 + K1b and through the scan at each scale.
+     yardstick (CUDA events), and host times. K1 forward's lines say
+     whether it ran on tensor cores (bf16 at C = 64/128/256); K2's lines
+     carry warp()'s host time. Then the training routing: one pixel
+     LSTM's forward + backward through K1 + K1b and through the scan at
+     each scale; and the serving routing at C = 256 and 512: K1, matmul +
+     K3 and the scan, B=8, bf16. Then, once every event and host timing
+     above is taken (a profiler session may slow the launches after it),
+     the torch.profiler pass: K1 forward's device time on each of its
+     lines, K1b's launches by name (tile kernel, dW pass, reductions) in
+     one call at each timed shape, K2's and F.grid_sample's device time
+     per call over 1,000 calls with rule 2's verdict, the serving
+     routing's device times; and one K1 forward line's event times taken
+     again after it (profiler_aftereffect).
   3. serving: a seeded full-width STF-LSTM-UNet (ResNet-34, pixel LSTMs at
      C=64..512, T=8, crop 224, bf16) written as a reference-layout .pth,
      served through cli/serve.build_server on 127.0.0.1, answering
@@ -28,7 +38,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      on the path must have launched during this phase.
   4. breakdown: host preprocessing per request, engine.predict per batch
      bucket, and a torch.profiler view of one B=8 forward (kernel time by
-     name, the pixel-LSTM kernels' share, the device's idle share).
+     name, the port's kernels by name, the pixel-LSTM kernels' share, the
+     device's idle share).
   5. kernel path against plain path: logits of one batch with the kernels
      ("auto") and with the plain LSTM loop ("scan").
   6. training: a synthetic BreaDM tree of subtraction (SUB) sequences at
@@ -38,7 +49,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      during this phase.
   7. steps: the loss of repeated steps on one fixed batch falls; ms per
      step, samples/s, the device's idle share and a torch.profiler view of
-     one step.
+     one step (with the port's kernels by name).
   8. training path against plain path: one f32 step through the kernels
      and through the scan + plain warp; loss and every gradient.
   9. PK maps: `python -m stf_unet_tpu_torch.pk.maps` (LM) over the tree's
@@ -134,6 +145,57 @@ def dev_ms(e) -> float:
             or getattr(e, "cuda_time_total", 0.0)) / 1e3
 
 
+def profiled_ms(fn, calls: int, match: str = ""):
+    """Device time per call of fn(): the CUDA kernels whose name contains
+    `match` (every kernel with ""), summed over one torch.profiler window
+    of `calls` back-to-back calls. None where the profiler shows no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(dev_ms(e) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and match in e.key)
+    return total / calls if total else None
+
+
+def host_us(fn, calls: int = 20) -> float:
+    """Host time of one call of fn(), the wrapper's own work and its
+    launches: the mean over back-to-back calls enqueued without a sync
+    (20 calls stay far inside the launch queue, so the host never waits
+    on the card)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return out
+
+
+def port_kernels_by_name(kernels, per: int = 1) -> dict:
+    """Device ms of the port's own kernels (stf::) among torch.profiler
+    key_averages() entries, by kernel name, divided by `per`."""
+    import re
+
+    out = {}
+    for e in kernels:
+        name = re.search(r"stf::(\w+)", e.key)
+        if name:
+            out[name.group(1)] = out.get(name.group(1), 0.0) + dev_ms(e) / per
+    return out
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BPS
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -172,14 +234,20 @@ def kernel_cases(gen, device):
                            lstm_last, lstm_last_plain)
 
 
-def kernel_phase(device, quick: bool):
+def kernel_phase(device, quick: bool, jobs: list):
     """Every kernel vs its plain version; timings at B=8 in both dtypes.
-    Returns per-kernel aggregates over one B=8 bf16 serving forward (the
-    kernels line's ms and bound for K1 forward and K3)."""
+    K1 forward's lines say whether the call ran on tensor cores and carry
+    its host time; its device time per line is queued on `jobs` (see
+    profiled_pass). Returns per-kernel aggregates over one B=8 bf16
+    serving forward (the kernels line's ms and bound for K1 forward and
+    K3), and the aftereffect job of the C=64 line (None with `quick`)."""
     import torch
 
+    from stf_unet_tpu_torch.ops.kernels.lstm_last_x import (TC_FWD_C,
+                                                            tensor_core_fwd)
+
     gen = torch.Generator().manual_seed(0)
-    agg = {}
+    agg, recheck = {}, None
     for name, c, n, dname, args, kern, plain in kernel_cases(gen, device):
         got = kern(*args)
         want = plain(*args)
@@ -195,9 +263,18 @@ def kernel_phase(device, quick: bool):
                                   "plain_ms": 0.0, "bound_ms": 0.0,
                                   "bound_by": None, "library_ms": None,
                                   "shapes": []})
+        if name == "lstm_last_x":
+            line["tensor_cores"] = tensor_core_fwd(args[0].dtype, c)
+            a["tensor_cores"] = f"bf16, C in {list(TC_FWD_C)}"
         if dname == "bf16":
             a["max_abs_err"] = max(a["max_abs_err"], err)
-        if n == 8 * dict(SCALES)[c] ** 2 and not quick:
+        serving_b8 = n == 8 * dict(SCALES)[c] ** 2
+        if name == "lstm_last_x" and not quick:
+            line["host_us"] = host_us(lambda: kern(*args))
+            jobs.append(lstm_last_x_device_job(
+                {"kernel": name, "C": c, "N": n, "dtype": dname}, args,
+                a if serving_b8 and dname == "bf16" else None))
+        if serving_b8 and not quick:
             t_steps = args[0].shape[0]
             item = args[0].element_size()
             if name == "lstm_last_x":
@@ -220,8 +297,51 @@ def kernel_phase(device, quick: bool):
                     a["library_ms"] = (a["library_ms"] or 0.0) + lib_ms
                 a["bound_by"] = by
                 a["shapes"].append({"C": c, "N": n, "T": t_steps})
+            if name == "lstm_last_x" and dname == "bf16" and c == 64:
+                recheck = aftereffect_job(line, args, kern, plain)
         print(json.dumps(line), flush=True)
-    return agg
+    return agg, recheck
+
+
+def lstm_last_x_device_job(ident: dict, args, agg):
+    """A profiled_pass job: K1 forward's device time per call on `args`
+    (20 calls), printed with `ident`; added to agg["device_ms"] where agg
+    is given (the B=8 bf16 serving forward's sum)."""
+    from stf_unet_tpu_torch.ops.kernels.lstm_last_x import lstm_last_x
+
+    def job():
+        ms = profiled_ms(lambda: lstm_last_x(*args), 20, "stf::lstm_last_x")
+        print(json.dumps({**ident, "device_ms": ms}), flush=True)
+        if agg is not None:
+            agg["device_ms"] = (agg.get("device_ms") or 0.0) + (ms or 0.0)
+    return job
+
+
+def aftereffect_job(line: dict, args, kern, plain):
+    """fn() printing the CUDA-event times of one K1 forward line (kernel,
+    plain version, torch.nn.LSTM) taken again, beside the line's first
+    figures. Run after profiled_pass, it shows whether a profiler session
+    slows the launches after it."""
+    def job():
+        print(json.dumps({"profiler_aftereffect": {
+            "C": line["C"], "N": line["N"], "dtype": line["dtype"],
+            "before": {k: line[k] for k in ("kernel_ms", "plain_ms",
+                                            "library_ms")},
+            "after": {"kernel_ms": cuda_ms(lambda: kern(*args)),
+                      "plain_ms": cuda_ms(lambda: plain(*args), iters=5),
+                      "library_ms": cudnn_lstm_ms(*args)}}}), flush=True)
+    return job
+
+
+def profiled_pass(jobs: list) -> None:
+    """Run the measurements the kernel phases queued on `jobs`: every
+    torch.profiler window of those phases (device time per call, K1b's
+    launches by name). They run after all of the phases' CUDA-event and
+    host timings, because a profiler session may leave the launches after
+    it slower (aftereffect_job measures that)."""
+    for job in jobs:
+        job()
+    jobs.clear()
 
 
 def cudnn_lstm_ms(x, w_ih, w_hh, b, dh=None):
@@ -279,6 +399,10 @@ WARP_B, WARP_SRC = 16, 256
 # the plain version does (no FMA contraction), so nearest must be equal
 # and bilinear within 1e-5 of the normalized value (|value| < 6).
 WARP_TOL = 1e-5
+# K2 and F.grid_sample: device time per call from one torch.profiler
+# window over this many back-to-back calls (a 20-call CUDA-event window
+# at ~13 us of bytes bound times the host's enqueue rate, not the kernel).
+WARP_PROFILED_CALLS = 1000
 
 
 def lstm_bwd_inputs(gen, c, n, dtype, device):
@@ -293,10 +417,12 @@ def lstm_bwd_inputs(gen, c, n, dtype, device):
     return tuple(v.to(device, dtype) for v in (x, w_ih, w_hh, b, dh))
 
 
-def lstm_bwd_phase(device, quick: bool):
+def lstm_bwd_phase(device, quick: bool, jobs: list):
     """K1b against its plain version at the training shapes, in bf16 and
     f32; determinism (two launches, bitwise); timings at the two training
-    shapes in bf16, the training dtype. Returns the kernels-line entry."""
+    shapes in bf16, the training dtype, with the device time of each of
+    its launches queued on `jobs` (profiled_pass). Returns the
+    kernels-line entry."""
     import torch
 
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x_bwd import (
@@ -346,8 +472,10 @@ def lstm_bwd_phase(device, quick: bool):
                                 iters=5),
                             bound_us=bms * 1e3, bound_by=by,
                             library_ms=lib_ms)
-                line["launch_ms"] = lstm_bwd_launch_ms(args)
-                line["host_us"] = lstm_bwd_host_us(args)
+                line["host_us"] = host_us(lambda: lstm_last_x_bwd(*args))
+                jobs.append(lstm_bwd_launch_job(
+                    {"kernel": "lstm_last_x_bwd", "C": c, "N": n,
+                     "dtype": dname}, args))
                 line["design_floor_us"] = (lstm_bwd_design_bytes(args)
                                            / HBM_BPS * 1e6)
                 agg["ms"] += line["kernel_ms"]
@@ -368,9 +496,10 @@ def lstm_bwd_phase(device, quick: bool):
 ROUTE_SHAPES = ((64, 50176), (128, 12544), (256, 3136), (512, 784))
 
 
-def routing_phase(device):
+def routing_phase(device, jobs: list):
     """Time pixel_lstm's two training backends at every scale: the
-    measurement behind FUSED_TRAIN_MAX_C (printed, not checked)."""
+    measurement behind FUSED_TRAIN_MAX_C (printed, not checked); then the
+    serving routing (serve_routing_phase)."""
     import torch
 
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x import lstm_last_x
@@ -391,11 +520,66 @@ def routing_phase(device):
                      "routed_to": "fused" if c <= FUSED_TRAIN_MAX_C
                      else "scan"})
     print(json.dumps({"train_routing_bf16": rows}), flush=True)
+    serve_routing_phase(device, jobs)
 
 
-def lstm_bwd_launch_ms(args) -> dict:
-    """Device time of each of K1b's own launches in one call, by kernel
-    name (torch.profiler): the tile kernel, the dW pass, the reductions."""
+# Serving routing (ops/lstm.FUSED_MAX_C): one pixel LSTM's inference
+# forward at the two widest scales of a B=8 serving forward (crop 224).
+SERVE_ROUTE_SHAPES = ((256, 8 * 14 * 14), (512, 8 * 7 * 7))
+
+
+def serve_routing_phase(device, jobs: list):
+    """Time pixel_lstm's three inference backends, bf16, at C = 256 and
+    512 (B=8): "fused" (K1), "last" (a matmul input projection + K3) and
+    the scan, by CUDA events (20 calls), with their device time
+    (torch.profiler) queued on `jobs`: the measurement behind FUSED_MAX_C
+    (printed, not checked)."""
+    import torch
+
+    from stf_unet_tpu_torch.ops.kernels.lstm_last import lstm_last
+    from stf_unet_tpu_torch.ops.kernels.lstm_last_x import (lstm_last_x,
+                                                            tensor_core_fwd)
+    from stf_unet_tpu_torch.ops.lstm import FUSED_MAX_C, lstm_scan
+
+    gen = torch.Generator().manual_seed(5)
+    rows, timed = [], []
+    for c, n in SERVE_ROUTE_SHAPES:
+        x, w_ih, w_hh, b, _ = lstm_bwd_inputs(gen, c, n, torch.bfloat16,
+                                              device)
+        backends = {
+            "fused": lambda x=x, w_ih=w_ih, w_hh=w_hh, b=b:
+                lstm_last_x(x, w_ih, w_hh, b),
+            "last": lambda x=x, w_ih=w_ih, w_hh=w_hh, b=b:
+                lstm_last(x @ w_ih, w_hh, b),
+            "scan": lambda x=x, w_ih=w_ih, w_hh=w_hh, b=b:
+                lstm_scan(x, w_ih, w_hh, b)}
+        row = {"C": c, "N": n, "fused_tensor_cores":
+               tensor_core_fwd(torch.bfloat16, c),
+               "routed_to": "fused" if c <= FUSED_MAX_C else "last"}
+        with torch.inference_mode():
+            for label, fn in backends.items():
+                row[f"{label}_ms"] = cuda_ms(fn)
+        rows.append(row)
+        timed.append(backends)
+    print(json.dumps({"serve_routing_bf16": rows}), flush=True)
+
+    def job():
+        with torch.inference_mode():
+            device_rows = [
+                {"C": row["C"], "N": row["N"],
+                 **{f"{label}_device_ms": profiled_ms(fn, 20)
+                    for label, fn in backends.items()}}
+                for row, backends in zip(rows, timed)]
+        print(json.dumps({"serve_routing_bf16_device": device_rows}),
+              flush=True)
+    jobs.append(job)
+
+
+def lstm_bwd_launch_job(ident: dict, args):
+    """A profiled_pass job: the device time of each of K1b's own launches
+    in one call on `args`, by kernel name (torch.profiler): the tile
+    kernel, the dW pass, the reductions; printed with `ident` as
+    launch_ms."""
     import re
 
     import torch
@@ -404,36 +588,21 @@ def lstm_bwd_launch_ms(args) -> dict:
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x_bwd import \
         lstm_last_x_bwd
 
-    lstm_last_x_bwd(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def job():
         lstm_last_x_bwd(*args)
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        name = re.search(r"stf::(\w+)", e.key)
-        if e.device_type == torch.autograd.DeviceType.CUDA and name:
-            out[name.group(1)] = {"calls": e.count, "ms": dev_ms(e)}
-    return out or {"device_time": "not measured"}
-
-
-def lstm_bwd_host_us(args, calls: int = 20) -> float:
-    """Host time of one K1b call, the wrapper's own work and its launches:
-    the mean over back-to-back calls enqueued without a sync (each call's
-    device time exceeds it, so the host never waits on the card)."""
-    import torch
-
-    from stf_unet_tpu_torch.ops.kernels.lstm_last_x_bwd import \
-        lstm_last_x_bwd
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        lstm_last_x_bwd(*args)
-    host_us = (time.perf_counter() - t0) * 1e6 / calls
-    torch.cuda.synchronize()
-    return host_us
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lstm_last_x_bwd(*args)
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            name = re.search(r"stf::(\w+)", e.key)
+            if e.device_type == torch.autograd.DeviceType.CUDA and name:
+                out[name.group(1)] = {"calls": e.count, "ms": dev_ms(e)}
+        print(json.dumps({**ident, "launch_ms": out or {
+            "device_time": "not measured"}}), flush=True)
+    return job
 
 
 def lstm_bwd_design_bytes(args) -> float:
@@ -489,11 +658,15 @@ def warp_inputs(device, pk_maps: bool):
     return aug, stacked, gy, gx, valid
 
 
-def warp_phase(device, quick: bool):
+def warp_phase(device, quick: bool, jobs: list):
     """K2 against its plain version at the training shape, without PK maps
     (Cs=9) and with them (Cs=12); timings of kernel, plain version and
-    F.grid_sample. Returns the kernels-line entry (Cs=9, with the Cs=12
-    figures under "pk_shape")."""
+    F.grid_sample (CUDA events over 20 calls; the host time of one warp()
+    call), and queued on `jobs` (profiled_pass) the device time per call
+    over WARP_PROFILED_CALLS calls of K2 and of F.grid_sample, and rule
+    2's test: K2 is left alone where its device time is within 2x its
+    bound and no slower than F.grid_sample's. Returns the kernels-line
+    entry (Cs=9, with the Cs=12 figures under "pk_shape")."""
     import torch
 
     from stf_unet_tpu_torch.ops.kernels.warp import warp, warp_plain
@@ -527,14 +700,20 @@ def warp_phase(device, quick: bool):
                                              + valid.numel())
                       + 4 * (bil.numel() + near.numel()))
             bms, by = bound_ms(nbytes, 0.0, "f32")
+            library = grid_sample_fn(stacked, gy, gx)
             entry.update(ms=cuda_ms(lambda: warp(*args)),
                          plain_ms=cuda_ms(lambda: warp_plain(*args),
                                           iters=5),
                          bound_ms=bms, bound_by=by,
-                         library_ms=grid_sample_ms(stacked, gy, gx))
+                         library_ms=cuda_ms(library),
+                         host_us=host_us(lambda: warp(*args)))
             line.update(kernel_ms=entry["ms"], plain_ms=entry["plain_ms"],
                         bound_us=bms * 1e3, bound_by=by,
-                        library_ms=entry["library_ms"])
+                        library_ms=entry["library_ms"],
+                        host_us=entry["host_us"])
+            jobs.append(warp_device_job(
+                {"kernel": "warp", "B": WARP_B, "Cs": cs}, args, library,
+                entry))
         print(json.dumps(line), flush=True)
         entries.append(entry)
     entry, pk_entry = entries
@@ -543,10 +722,35 @@ def warp_phase(device, quick: bool):
     return entry
 
 
-def grid_sample_ms(stacked, gy, gx) -> float:
-    """F.grid_sample bilinear over the frames plus nearest over the mask at
-    the same coordinates (a yardstick only; the port never calls it). The
-    float source is made outside the timed region."""
+def warp_device_job(ident: dict, args, library, entry: dict):
+    """A profiled_pass job: K2's and F.grid_sample's device time per call
+    over WARP_PROFILED_CALLS calls each, and rule 2's verdict, into
+    `entry` and printed with `ident`."""
+    from stf_unet_tpu_torch.ops.kernels.warp import warp
+
+    def job():
+        dev = profiled_ms(lambda: warp(*args), WARP_PROFILED_CALLS,
+                          "stf::warp_kernel")
+        lib_dev = profiled_ms(library, WARP_PROFILED_CALLS)
+        bms = entry["bound_ms"]
+        entry.update(device_ms=dev, library_device_ms=lib_dev,
+                     rule2_leave_alone=(
+                         dev <= 2 * bms and dev <= lib_dev
+                         if dev is not None and lib_dev is not None
+                         else "not measured"))
+        print(json.dumps({**ident, "device_ms": dev,
+                          "library_device_ms": lib_dev,
+                          "profiled_calls": WARP_PROFILED_CALLS,
+                          "bound_us": bms * 1e3,
+                          "rule2_leave_alone": entry["rule2_leave_alone"]}),
+              flush=True)
+    return job
+
+
+def grid_sample_fn(stacked, gy, gx):
+    """fn() running F.grid_sample bilinear over the frames plus nearest
+    over the mask at the same coordinates (a yardstick only; the port
+    never calls it). The float source is made outside fn."""
     import torch
     import torch.nn.functional as F
 
@@ -561,7 +765,7 @@ def grid_sample_ms(stacked, gy, gx) -> float:
         F.grid_sample(mask, grid, mode="nearest", padding_mode="zeros",
                       align_corners=True)
 
-    return cuda_ms(both)
+    return both
 
 
 # K4 at the PK fit's shapes (T=8 time points, Q=700 grid points): a full
@@ -776,6 +980,7 @@ def breakdown_phase(server, frames):
         "device_idle_share_predict_b8": idle(predict_ms[8]),
         "lstm_kernels_share": (lstm_ms / busy_ms) if busy_ms
         else "not measured",
+        "port_kernels_ms_per_forward": port_kernels_by_name(kernels, 3),
         "top_kernels": [{"name": e.key[:90], "calls": e.count,
                          "ms": dev_ms(e)} for e in top]}}), flush=True)
 
@@ -1023,6 +1228,7 @@ def step_phase(data: str, device: str = "cuda", pk: bool = False):
         else "not measured",
         "port_kernels_ms": ours, "port_kernels_share": (ours / busy)
         if busy else "not measured",
+        "port_kernels_by_name": port_kernels_by_name(kernels),
         "peak_memory_gb_timed_steps": (
             torch.cuda.max_memory_allocated(dev) / 2**30)
         if dev.type == "cuda" else "not measured",
@@ -1372,14 +1578,17 @@ def main() -> int:
               f"{info['log'].strip()}", flush=True)
 
     device = torch.device("cuda")
-    agg = kernel_phase(device, args.quick)
-    agg["lstm_last_x_bwd"] = lstm_bwd_phase(device, args.quick)
-    agg["warp"] = warp_phase(device, args.quick)
+    jobs = []  # torch.profiler windows, run once every event timing is done
+    agg, recheck = kernel_phase(device, args.quick, jobs)
+    agg["lstm_last_x_bwd"] = lstm_bwd_phase(device, args.quick, jobs)
+    agg["warp"] = warp_phase(device, args.quick, jobs)
     agg["tofts_sums"] = tofts_phase(device, args.quick)
     if args.quick:
         print("quick: kernels build and agree with their plain versions")
         return 0
-    routing_phase(device)
+    routing_phase(device, jobs)
+    profiled_pass(jobs)
+    recheck()
     with tempfile.TemporaryDirectory() as tmpdir:
         server, frames, serve_launches = serving_phase(tmpdir)
         weights_sd = torch.load(os.path.join(tmpdir, "stflstm_seed0.pth"),
@@ -1433,7 +1642,8 @@ def main() -> int:
                  bound_by=a["bound_by"], library_ms=a["library_ms"],
                  shapes=a["shapes"], dtype=dtypes.get(k["name"], "bf16"))
         for extra in ("pk_shape", "sfu_floor_ms", "sfu_floor_clock_mhz",
-                      "tensor_cores"):
+                      "tensor_cores", "device_ms", "library_device_ms",
+                      "host_us", "rule2_leave_alone"):
             if extra in a:
                 k[extra] = a[extra]
     print(json.dumps({"kernels": kernels}), flush=True)

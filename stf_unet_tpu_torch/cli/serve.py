@@ -44,8 +44,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="compute dtype (parameters stay float32; logits "
                         "are float32)")
     p.add_argument("--crop-size", type=int, default=None,
-                   help="short edge the frames are resized to (default "
-                        "224)")
+                   help="short edge the frames are resized to (default: "
+                        "the checkpoint's training crop, else 224)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' only when asked for")
     return p.parse_args(argv)

@@ -69,6 +69,7 @@
 #include <type_traits>
 
 #include "lstm_cell.cuh"
+#include "lstm_tc.cuh"
 #include "mma_bf16.cuh"
 
 namespace stf {
@@ -247,18 +248,17 @@ lstm_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
   }
 }
 
-// bf16, C = 64 or 128: the tile kernel's products on tensor cores. A block
-// owns kTcRows rows and all C units; warp w owns units 16w..16w+15 of both
-// 16-row fragments, so C/16 warps. Lane l owns the elements (l/16 + 2q,
-// l%16), q = 0..7, of each 16 x 16 fragment: their cell state c (phase 1)
-// and dh / dc carry (phase 2) stay in its registers across t.
-//  * gates = x_t W_ih + round(h_{t-1}) W_hh: both A operands are exactly
-//    bf16 (staged in shared memory), W is bf16 (read as fragments from
-//    global memory, [C, 4C] as given; L1/L2 hold it), f32 accumulators,
-//    bias added per element. No split: this is the TPU's rounding point.
+// bf16, C = 64 or 128: the tile kernel's products on tensor cores, on the
+// tile of lstm_tc.cuh with kTcRows = 32 rows (two row fragments): warp w
+// owns units 16w..16w+15, so C/16 warps; each lane keeps its elements'
+// cell state c (phase 1) and dh / dc carry (phase 2) in registers.
+//  * gates = x_t W_ih + round(h_{t-1}) W_hh: gates_mma (lstm_tc.cuh), both
+//    A operands exactly bf16, W as given [C, 4C], f32 accumulators, bias
+//    added per element. No split: this is the TPU's rounding point.
 //  * each warp stores its 4 gate accumulators of one row fragment to its
-//    own shared scratch and runs the cell (phase 1) or the cell's backward
-//    (phase 2) per element in f32, reading them back.
+//    own shared scratch and runs the cell (phase 1, cell_step, the same
+//    code as K1's bf16 kernel) or the cell's backward (phase 2) per element
+//    in f32, reading them back.
 //  * phase 2: dgates go to the global dg (f32, for the dW pass) and, split
 //    into bf16 hi + lo, to shared memory; then dh_{t-1} = dg_hi W_hh^T +
 //    dg_lo W_hh^T and dx_t = dg_hi W_ih^T + dg_lo W_ih^T (W^T read as
@@ -266,6 +266,19 @@ lstm_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ w_ih,
 // C is a template parameter, so the fragment loops unroll; at C=64 the
 // register budget is held to three 128-thread blocks per SM.
 constexpr int kTcRows = 32;
+constexpr int kTcRf = kTcRows / kFrag;  // row fragments of the tile
+
+// Row stride of the [rows][4C] bf16 dgates tiles (padded as tc_lda).
+template <int C>
+__host__ __device__ constexpr int tc_ldg() { return 4 * C + 8; }
+
+// Shared memory of lstm_bwd_tile_tc_kernel<C>: the x tile and two h tiles
+// and the per-warp scratch (lstm_tc.cuh), and the dgates hi / lo tiles.
+template <int C>
+constexpr size_t tile_tc_smem_bytes() {
+  return tc_smem_bytes<C, kTcRf>(3) +
+         2 * (size_t)kTcRows * tc_ldg<C>() * sizeof(__nv_bfloat16);
+}
 
 template <int C>
 __global__ void __launch_bounds__(2 * C, C == 64 ? 3 : 1)
@@ -279,8 +292,8 @@ lstm_bwd_tile_tc_kernel(const __nv_bfloat16* __restrict__ x,
                         float* __restrict__ dg, int t_steps, int n) {
   extern __shared__ __align__(32) unsigned char smem_raw[];
   constexpr int c = C;
-  constexpr int lda = c + 8;      // row stride of the [rows][C] tiles (bf16)
-  constexpr int ldg = 4 * c + 8;  // row stride of the dgates tiles (bf16)
+  constexpr int lda = tc_lda<C>();  // row stride of the [rows][C] tiles
+  constexpr int ldg = tc_ldg<C>();  // row stride of the dgates tiles
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* hbuf0 = xs + kTcRows * lda;
   __nv_bfloat16* hbuf1 = hbuf0 + kTcRows * lda;
@@ -289,7 +302,7 @@ lstm_bwd_tile_tc_kernel(const __nv_bfloat16* __restrict__ x,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   float* scr = reinterpret_cast<float*>(glo + kTcRows * ldg) +
-               warp * 4 * kFrag * kFrag;  // this warp's [4][16][16]
+               warp * kTcScratch;  // this warp's [4][16][16]
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int row_base = blockIdx.x * kTcRows;
@@ -302,94 +315,30 @@ lstm_bwd_tile_tc_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
   for (int g = 0; g < 4; ++g) bias[g] = __bfloat162float(b[g * c + j]);
 
-  // x_t -> xs, 16-byte runs; rows past N are zero.
-  auto stage_x = [&](int t) {
-    const int runs = c / 8;
-    for (int idx = tid; idx < kTcRows * runs; idx += nthreads) {
-      const int r = idx / runs, k = (idx % runs) * 8;
-      const int row = row_base + r;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (row < n)
-        v = __ldg(reinterpret_cast<const uint4*>(
-            x + ((size_t)t * n + row) * c + k));
-      *reinterpret_cast<uint4*>(xs + r * lda + k) = v;
-    }
-  };
-  // acc[rf][g] = x_t W_ih + h W_hh over the block's rows, warp's units.
-  auto gates_mma = [&](const __nv_bfloat16* hsm, FragC (&acc)[2][4]) {
-#pragma unroll
-    for (int rf = 0; rf < 2; ++rf)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) wmma::fill_fragment(acc[rf][g], 0.0f);
-#pragma unroll
-    for (int kf = 0; kf < kfrags; ++kf) {
-      FragA ax[2], ah[2];
-#pragma unroll
-      for (int rf = 0; rf < 2; ++rf) {
-        wmma::load_matrix_sync(ax[rf], xs + rf * kFrag * lda + kf * kFrag,
-                               lda);
-        wmma::load_matrix_sync(ah[rf], hsm + rf * kFrag * lda + kf * kFrag,
-                               lda);
-      }
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        FragB bi, bh;
-        const size_t o = (size_t)kf * kFrag * c4 + g * c + u0;
-        wmma::load_matrix_sync(bi, w_ih + o, c4);
-        wmma::load_matrix_sync(bh, w_hh + o, c4);
-#pragma unroll
-        for (int rf = 0; rf < 2; ++rf) {
-          wmma::mma_sync(acc[rf][g], ax[rf], bi, acc[rf][g]);
-          wmma::mma_sync(acc[rf][g], ah[rf], bh, acc[rf][g]);
-        }
-      }
-    }
-  };
-  auto to_scratch = [&](FragC* frags, int count) {
-#pragma unroll
-    for (int g = 0; g < count; ++g)
-      wmma::store_matrix_sync(scr + g * kFrag * kFrag, frags[g], kFrag,
-                              wmma::mem_row_major);
-    __syncwarp();
-  };
-
   // ---- phase 1: forward replay, h_t / c_t to the scratch --------------
   for (int idx = tid; idx < kTcRows * lda; idx += nthreads)
     hbuf0[idx] = __float2bfloat16_rn(0.0f);
-  float cst[2][8];
+  float cst[kTcRf][8];
 #pragma unroll
-  for (int rf = 0; rf < 2; ++rf)
+  for (int rf = 0; rf < kTcRf; ++rf)
 #pragma unroll
     for (int q = 0; q < 8; ++q) cst[rf][q] = 0.0f;
   __nv_bfloat16* hcur = hbuf0;
   __nv_bfloat16* hnext = hbuf1;
   for (int t = 0; t < t_steps; ++t) {
-    stage_x(t);
+    stage_x_tile<C, kTcRf>(x, xs, t, n, row_base, tid);
     __syncthreads();  // x_t staged; h_{t-1} complete
-    FragC acc[2][4];
-    gates_mma(hcur, acc);
-#pragma unroll
-    for (int rf = 0; rf < 2; ++rf) {
-      to_scratch(acc[rf], 4);
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int e = (lane / kFrag + 2 * q) * kFrag + lane % kFrag;
-        const int r = rf * kFrag + lane / kFrag + 2 * q;
-        float gates[4];
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          gates[g] = scr[g * kFrag * kFrag + e] + bias[g];
-        const float h = cell(gates, cst[rf][q]);
-        hnext[r * lda + j] = __float2bfloat16_rn(h);
-        const int row = row_base + r;
-        if (row < n) {
-          const size_t o = ((size_t)t * n + row) * c + j;
-          hs[o] = h;
-          cs[o] = cst[rf][q];
-        }
-      }
-      __syncwarp();  // scratch read before the next fragment's store
-    }
+    FragC acc[kTcRf][4];
+    gates_mma<C, kTcRf>(xs, hcur, w_ih, w_hh, u0, acc);
+    cell_step<C, kTcRf>(acc, scr, bias, cst, hnext, lane, j,
+                        [&](int r, float h, float c_t) {
+                          const int row = row_base + r;
+                          if (row < n) {
+                            const size_t o = ((size_t)t * n + row) * c + j;
+                            hs[o] = h;
+                            cs[o] = c_t;
+                          }
+                        });
     __syncthreads();  // every read of x_t and h_{t-1} is done
     __nv_bfloat16* tmp = hcur;
     hcur = hnext;
@@ -423,7 +372,7 @@ lstm_bwd_tile_tc_kernel(const __nv_bfloat16* __restrict__ x,
                            ? cs[((size_t)(t - 1) * n + row) * c + j]
                            : 0.0f;
       }
-    stage_x(t);
+    stage_x_tile<C, kTcRf>(x, xs, t, n, row_base, tid);
     const int quads = c / 4;
     for (int idx = tid; idx < kTcRows * quads; idx += nthreads) {
       const int r = idx / quads, k = (idx % quads) * 4;
@@ -438,11 +387,11 @@ lstm_bwd_tile_tc_kernel(const __nv_bfloat16* __restrict__ x,
     }
     __syncthreads();  // x_t, round(h_{t-1}) staged; last step's dg read
 
-    FragC acc[2][4];
-    gates_mma(hprev, acc);
+    FragC acc[kTcRf][4];
+    gates_mma<C, kTcRf>(xs, hprev, w_ih, w_hh, u0, acc);
 #pragma unroll
     for (int rf = 0; rf < 2; ++rf) {
-      to_scratch(acc[rf], 4);
+      to_scratch<4>(scr, acc[rf]);
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         const int e = (lane / kFrag + 2 * q) * kFrag + lane % kFrag;
@@ -504,7 +453,7 @@ lstm_bwd_tile_tc_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int rf = 0; rf < 2; ++rf) {
       FragC both[2] = {acc_h[rf], acc_x[rf]};
-      to_scratch(both, 2);
+      to_scratch<2>(scr, both);
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         const int e = (lane / kFrag + 2 * q) * kFrag + lane % kFrag;
@@ -793,10 +742,7 @@ static cudaError_t tile_tc(const void* x, const void* w_ih, const void* w_hh,
                            const void* b, const void* dh, void* dx,
                            float* hs, float* cs, float* dg, int t_steps,
                            int n, cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
-  const size_t smem = (3 * (size_t)kTcRows * (C + 8) +
-                       2 * (size_t)kTcRows * (4 * C + 8)) * sizeof(bf16) +
-                      (size_t)(C / kFrag) * 4 * kFrag * kFrag * sizeof(float);
+  const size_t smem = tile_tc_smem_bytes<C>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         lstm_bwd_tile_tc_kernel<C>,

@@ -115,6 +115,14 @@ def pack_gates(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(c, 4, c).transpose(1, 2).contiguous()
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, contiguous and 32-byte aligned: the kernels read x in 16-byte
+    runs and W as WMMA fragments."""
+    if t.is_contiguous() and t.data_ptr() % 32 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def check_status(name: str, status: int) -> None:
     if status != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "

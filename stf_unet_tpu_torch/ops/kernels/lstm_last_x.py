@@ -13,8 +13,17 @@ reach device memory.
 Bound on the H100: operations. At the serving shapes (T=8; N = B*h*w with
 B=8 at C = 64/128/256) the kernel does 16*T*N*C^2 = 13.2 GFLOP per call,
 ~13 us at the 989 TFLOP/s bf16 peak, against 6.4-25.7 MB of x (2-8 us at
-3.35 TB/s). The first version runs its products on CUDA cores (see the
-source note in csrc/lstm_last_x.cu); its measured times are in PERF.md.
+3.35 TB/s).
+
+Which calls take tensor cores (`tensor_core_fwd`, `TC_FWD_C`): bf16 at
+C = 64, 128 and 256, the serving and training widths. That kernel forms
+the gates with WMMA bf16 products and f32 accumulators from exactly-bf16
+operands (x_t, round(h_{t-1}), W as given [C, 4C]): the TPU kernel's
+rounding point, with no split; its row tile is fixed per C in the .cu. f32,
+and bf16 at any other C, run the CUDA-core kernel on weights repacked
+[C, C, 4]; TF32 would miss f32's tolerance. The rule is on dtype and C:
+a tensor-core call that fails to build or launch raises, it never falls
+back. Design and times: csrc/lstm_last_x.cu, PERF.md.
 
 `lstm_last_x` is differentiable: it applies `LstmLastX`, whose backward is
 K1b (ops/kernels/lstm_last_x_bwd.py), with the JAX VJP's casts (dx in x's
@@ -32,7 +41,16 @@ import torch
 from stf_unet_tpu_torch.ops.kernels import build
 from stf_unet_tpu_torch.ops.kernels.lstm_last_x_bwd import lstm_last_x_bwd
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# Widths whose bf16 forward runs on tensor cores (the .cu instantiates
+# lstm_last_x_tc_kernel for these and refuses any other C).
+TC_FWD_C = (64, 128, 256)
+
+
+def tensor_core_fwd(dtype: torch.dtype, c: int) -> bool:
+    """Whether the forward runs on tensor cores: bf16 at C in TC_FWD_C, a
+    rule on dtype and C and never a fallback on failure."""
+    return dtype == torch.bfloat16 and c in TC_FWD_C
 
 
 def lstm_last_x_plain(x: torch.Tensor, w_ih: torch.Tensor,
@@ -73,15 +91,20 @@ def _forward(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     if c % 32 or not 32 <= c <= 512:
         raise ValueError(f"lstm_last_x kernel takes C in 32..512, a "
                          f"multiple of 32; got C={c}")
+    tc = tensor_core_fwd(x.dtype, c)
+    if tc:  # WMMA fragments of W [C, 4C] as given
+        x, wi, wh = (build.aligned(v) for v in (x, w_ih, w_hh))
+    else:
+        x = x.contiguous()
+        wi, wh = build.pack_gates(w_ih), build.pack_gates(w_hh)
     lib = build.load("lstm_last_x", _ARGTYPES)
-    x = x.contiguous()
-    wi, wh, bias = build.pack_gates(w_ih), build.pack_gates(w_hh), \
-        b.contiguous()
+    bias = b.contiguous()
     out = torch.empty((n, c), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         status = lib.stf_lstm_last_x(
             x.data_ptr(), wi.data_ptr(), wh.data_ptr(), bias.data_ptr(),
             out.data_ptr(), t_steps, n, c, build.DTYPE_CODES[x.dtype],
+            int(tc),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check_status("lstm_last_x", status)
     lstm_last_x.launches += 1

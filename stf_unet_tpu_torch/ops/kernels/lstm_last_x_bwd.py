@@ -130,14 +130,6 @@ def dw_splits(t_steps: int, n: int, c: int, dtype: torch.dtype) -> int:
     return max(1, min(per_split, -(-t_steps * n // 1024)))
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t, contiguous and 32-byte aligned: the kernels read x in 16-byte
-    runs and W as WMMA fragments."""
-    if t.is_contiguous() and t.data_ptr() % 32 == 0:
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
-
-
 def tensor_core_tile(dtype: torch.dtype, c: int) -> bool:
     """Whether the tile kernel runs on tensor cores: bf16 at C in
     TC_TILE_C, a rule on C and never a fallback on failure."""
@@ -169,10 +161,10 @@ def lstm_last_x_bwd(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
         raise ValueError(f"lstm_last_x_bwd kernel takes C in 32..512, a "
                          f"multiple of 32; got C={c}")
     lib = build.load("lstm_last_x_bwd", _ARGTYPES)
-    x, dh, bias = _aligned(x), dh.contiguous(), b.contiguous()
+    x, dh, bias = build.aligned(x), dh.contiguous(), b.contiguous()
     tc_tile = tensor_core_tile(x.dtype, c)
     if tc_tile:  # WMMA fragments of W [C, 4C] as given, and of W^T
-        wi, wh = _aligned(w_ih), _aligned(w_hh)
+        wi, wh = build.aligned(w_ih), build.aligned(w_hh)
         wi_t_ptr = wh_t_ptr = None
     else:
         wi, wh = build.pack_gates(w_ih), build.pack_gates(w_hh)
