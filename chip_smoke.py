@@ -17,20 +17,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      B=16, 256^2 -> 224^2, with the frames and mask (Cs=9) and with the
      PK maps too (Cs=12);
      K4 (the PK fit's quadrature sums) at N = 16384, 8951 and 256 voxels,
-     T=8, Q=700. Timings of kernel, plain version and a library
-     yardstick (CUDA events), and host times. K1 forward's lines say
-     whether it ran on tensor cores (bf16 at C = 64/128/256); K2's lines
-     carry warp()'s host time. Then the training routing: one pixel
-     LSTM's forward + backward through K1 + K1b and through the scan at
-     each scale; and the serving routing at C = 256 and 512: K1, matmul +
-     K3 and the scan, B=8, bf16. Then, once every event and host timing
-     above is taken (a profiler session may slow the launches after it),
-     the torch.profiler pass: K1 forward's device time on each of its
-     lines, K1b's launches by name (tile kernel, dW pass, reductions) in
-     one call at each timed shape, K2's and F.grid_sample's device time
-     per call over 1,000 calls with rule 2's verdict, the serving
-     routing's device times; and one K1 forward line's event times taken
-     again after it (profiler_aftereffect).
+     T=8, Q=700, with its bound and SFU floor over the active (t, q)
+     terms and over the full grid, and at Q=3500 with rates of inf, NaN
+     and -inf; K3 also at C=256, B=8, and each bf16 tensor-core K3 line
+     against a control that rounds h to bf16 in the product. Timings of
+     kernel, plain version and a library yardstick (CUDA events), and
+     host times. K1 forward's and K3's lines say whether they ran on
+     tensor cores (K1: bf16 at C = 64/128/256; K3: bf16 at C = 256/512);
+     K2's lines carry warp()'s host time. Then the training routing: one
+     pixel LSTM's forward + backward through K1 + K1b and through the
+     scan at each scale; and the serving routing at C = 256 and 512: K1,
+     matmul + K3 and the scan, B=8, bf16. Then, once every event and host
+     timing above is taken (a profiler session may slow the launches
+     after it), the torch.profiler pass: K1 forward's and K3's device time
+     on each of their lines, K1b's launches by name (tile kernel, dW
+     pass, reductions) in one call at each timed shape, K2's and
+     F.grid_sample's device time per call over 1,000 calls with rule 2's
+     verdict, K4's over 500 calls, the serving routing's device times;
+     and one K1 forward line's event times taken again after it
+     (profiler_aftereffect).
   3. serving: a seeded full-width STF-LSTM-UNet (ResNet-34, pixel LSTMs at
      C=64..512, T=8, crop 224, bf16) written as a reference-layout .pth,
      served through cli/serve.build_server on 127.0.0.1, answering
@@ -64,6 +69,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      PK-maps model.
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
+
+`--quick` stops after the kernel checks and prints no result line.
 
 Exits non-zero without a CUDA device, and when the package is not beside
 this script.
@@ -102,6 +109,17 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 #         is 2^-8 just below 1; a sum-order change may flip a rounding, so
 #         allow two such steps: 2^-7.
 TOL = {"f32": 2e-5, "bf16": 2.0 ** -7}
+# K3 is also checked and timed at this width, B=8: the serving routing
+# times its "last" backend there, and its bf16 tensor-core kernel is
+# instantiated for it.
+K3_OFF_PATH_C = 256
+# K3's tensor-core kernel splits the f32 h into bf16 hi + lo (2^-16 of
+# |h|), so its h_T differs from the plain twin's only where a sum-order
+# change flips a bf16 rounding (~0.04 % of elements in the CPU emulation,
+# tests/test_torch_lstm_last_tc.py); h rounded to bf16 (2^-9) flips ~11 %.
+# The kernel must sit this many times closer than that control by mean
+# |difference| (split_control).
+K3_SPLIT_RATIO = 0.1
 N_REQUESTS = 32
 
 
@@ -204,8 +222,10 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 
 
 def kernel_cases(gen, device):
-    """(kernel name, C, N, dtype, inputs, kernel fn, plain fn) for every
-    row count the serving and training paths give each kernel."""
+    """(kernel name, C, N, dtype, inputs, kernel fn, plain fn, on the
+    serving path) for every row count the serving and training paths give
+    each kernel, and K3 at C=256, B=8, the serving routing's "last"
+    backend (off the path: "auto" sends C=256 to K1)."""
     import torch
 
     from stf_unet_tpu_torch.ops.kernels.lstm_last import (lstm_last,
@@ -227,28 +247,35 @@ def kernel_cases(gen, device):
                                                                    dtype)
                 if c <= FUSED_MAX_C:
                     yield ("lstm_last_x", c, n, dname, (x, w_ih, w_hh, b),
-                           lstm_last_x, lstm_last_x_plain)
-                else:
+                           lstm_last_x, lstm_last_x_plain, True)
+                if c > FUSED_MAX_C or (c == K3_OFF_PATH_C and bsz == 8):
                     xp = x @ w_ih  # the serving path's projection, rounded
                     yield ("lstm_last", c, n, dname, (xp, w_hh, b),
-                           lstm_last, lstm_last_plain)
+                           lstm_last, lstm_last_plain, c > FUSED_MAX_C)
 
 
 def kernel_phase(device, quick: bool, jobs: list):
-    """Every kernel vs its plain version; timings at B=8 in both dtypes.
-    K1 forward's lines say whether the call ran on tensor cores and carry
-    its host time; its device time per line is queued on `jobs` (see
-    profiled_pass). Returns per-kernel aggregates over one B=8 bf16
+    """K1 forward and K3 vs their plain versions; timings at B=8 in both
+    dtypes. Each line says whether the call ran on tensor cores (K3's
+    also how far it sits from the plain twin against a control that
+    rounds h to bf16, split_control) and carries its host time; its
+    device time is queued on `jobs` (see profiled_pass).
+    Returns per-kernel aggregates over one B=8 bf16
     serving forward (the kernels line's ms and bound for K1 forward and
     K3), and the aftereffect job of the C=64 line (None with `quick`)."""
     import torch
 
+    from stf_unet_tpu_torch.ops.kernels.lstm_last import (TC_LAST_C,
+                                                          tensor_core_last)
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x import (TC_FWD_C,
                                                             tensor_core_fwd)
 
+    rules = {"lstm_last_x": (tensor_core_fwd, TC_FWD_C),
+             "lstm_last": (tensor_core_last, TC_LAST_C)}
     gen = torch.Generator().manual_seed(0)
     agg, recheck = {}, None
-    for name, c, n, dname, args, kern, plain in kernel_cases(gen, device):
+    for (name, c, n, dname, args, kern, plain,
+         on_path) in kernel_cases(gen, device):
         got = kern(*args)
         want = plain(*args)
         torch.cuda.synchronize()
@@ -263,18 +290,22 @@ def kernel_phase(device, quick: bool, jobs: list):
                                   "plain_ms": 0.0, "bound_ms": 0.0,
                                   "bound_by": None, "library_ms": None,
                                   "shapes": []})
-        if name == "lstm_last_x":
-            line["tensor_cores"] = tensor_core_fwd(args[0].dtype, c)
-            a["tensor_cores"] = f"bf16, C in {list(TC_FWD_C)}"
+        rule, widths = rules[name]
+        line["tensor_cores"] = rule(args[0].dtype, c)
+        a["tensor_cores"] = f"bf16, C in {list(widths)}"
+        if name == "lstm_last" and line["tensor_cores"]:
+            line["h_bf16_control"] = split_control(got, want, args)
         if dname == "bf16":
             a["max_abs_err"] = max(a["max_abs_err"], err)
-        serving_b8 = n == 8 * dict(SCALES)[c] ** 2
-        if name == "lstm_last_x" and not quick:
+        b8 = n == 8 * dict(SCALES)[c] ** 2
+        serving_b8 = b8 and on_path
+        if not quick:
             line["host_us"] = host_us(lambda: kern(*args))
-            jobs.append(lstm_last_x_device_job(
-                {"kernel": name, "C": c, "N": n, "dtype": dname}, args,
+            jobs.append(device_job(
+                {"kernel": name, "C": c, "N": n, "dtype": dname},
+                lambda kern=kern, args=args: kern(*args), f"stf::{name}", 20,
                 a if serving_b8 and dname == "bf16" else None))
-        if serving_b8 and not quick:
+        if b8 and not quick:
             t_steps = args[0].shape[0]
             item = args[0].element_size()
             if name == "lstm_last_x":
@@ -289,7 +320,7 @@ def kernel_phase(device, quick: bool, jobs: list):
             line.update(kernel_ms=cuda_ms(lambda: kern(*args)),
                         plain_ms=cuda_ms(lambda: plain(*args), iters=5),
                         bound_us=bms * 1e3, bound_by=by, library_ms=lib_ms)
-            if dname == "bf16":  # the serving dtype: one B=8 forward
+            if serving_b8 and dname == "bf16":  # one B=8 serving forward
                 a["ms"] += line["kernel_ms"]
                 a["plain_ms"] += line["plain_ms"]
                 a["bound_ms"] += bms
@@ -303,14 +334,55 @@ def kernel_phase(device, quick: bool, jobs: list):
     return agg, recheck
 
 
-def lstm_last_x_device_job(ident: dict, args, agg):
-    """A profiled_pass job: K1 forward's device time per call on `args`
-    (20 calls), printed with `ident`; added to agg["device_ms"] where agg
-    is given (the B=8 bf16 serving forward's sum)."""
-    from stf_unet_tpu_torch.ops.kernels.lstm_last_x import lstm_last_x
+def lstm_last_h_bf16(x_proj, w_hh, b):
+    """lstm_last_plain with h_{t-1} rounded to bf16 before the recurrent
+    product: what K3's tensor-core kernel would give without the lo half
+    of its split of h (hi W_hh alone)."""
+    import torch
 
+    f32 = torch.float32
+    t_steps, n, four_c = x_proj.shape
+    wh, bias = w_hh.to(f32), b.to(f32)
+    h = torch.zeros((n, four_c // 4), dtype=f32, device=x_proj.device)
+    cs = torch.zeros_like(h)
+    for t in range(t_steps):
+        gates = (x_proj[t].to(f32) + h.to(torch.bfloat16).to(f32) @ wh) + bias
+        i, f, g, o = gates.chunk(4, dim=1)
+        cs = torch.sigmoid(f) * cs + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(cs)
+    return h.to(x_proj.dtype)
+
+
+def split_control(got, want, args) -> dict:
+    """K3's bf16 tensor-core output `got` and the control
+    lstm_last_h_bf16 on the same inputs, each against the plain twin's
+    `want` (h f32 in the product): mean |difference| and the share of
+    elements that differ. Fails unless the kernel is K3_SPLIT_RATIO times
+    closer than the control by mean |difference|: max |difference| alone
+    cannot tell them apart (both read one bf16 step)."""
+    import torch
+
+    ctl = lstm_last_h_bf16(*args)
+    out = {}
+    for key, v in (("kernel", got), ("control", ctl)):
+        d = (v.float() - want.float()).abs()
+        out[key] = {"mean_abs_err": d.mean().item(),
+                    "differ_share": (d > 0).float().mean().item()}
+    check(out["kernel"]["mean_abs_err"]
+          <= K3_SPLIT_RATIO * out["control"]["mean_abs_err"],
+          f"lstm_last: the tensor-core kernel is not {1 / K3_SPLIT_RATIO:g}x "
+          f"closer to the plain twin than h rounded to bf16: {out}")
+    out["ratio"] = K3_SPLIT_RATIO
+    return out
+
+
+def device_job(ident: dict, fn, match: str, calls: int, agg=None):
+    """A profiled_pass job: the device time per call of fn()'s kernels
+    whose name contains `match`, over one torch.profiler window of `calls`
+    calls, printed with `ident`; added to agg["device_ms"] where agg is
+    given (for K1 forward and K3, the B=8 bf16 serving forward's sum)."""
     def job():
-        ms = profiled_ms(lambda: lstm_last_x(*args), 20, "stf::lstm_last_x")
+        ms = profiled_ms(fn, calls, match)
         print(json.dumps({**ident, "device_ms": ms}), flush=True)
         if agg is not None:
             agg["device_ms"] = (agg.get("device_ms") or 0.0) + (ms or 0.0)
@@ -536,7 +608,8 @@ def serve_routing_phase(device, jobs: list):
     (printed, not checked)."""
     import torch
 
-    from stf_unet_tpu_torch.ops.kernels.lstm_last import lstm_last
+    from stf_unet_tpu_torch.ops.kernels.lstm_last import (lstm_last,
+                                                          tensor_core_last)
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x import (lstm_last_x,
                                                             tensor_core_fwd)
     from stf_unet_tpu_torch.ops.lstm import FUSED_MAX_C, lstm_scan
@@ -555,6 +628,7 @@ def serve_routing_phase(device, jobs: list):
                 lstm_scan(x, w_ih, w_hh, b)}
         row = {"C": c, "N": n, "fused_tensor_cores":
                tensor_core_fwd(torch.bfloat16, c),
+               "last_tensor_cores": tensor_core_last(torch.bfloat16, c),
                "routed_to": "fused" if c <= FUSED_MAX_C else "last"}
         with torch.inference_mode():
             for label, fn in backends.items():
@@ -779,6 +853,15 @@ TOFTS_N = (16384, 8951, 256)
 TOFTS_RTOL, TOFTS_ATOL = 1e-5, 1e-6
 # The SFU's exponential rate on compute capability 9.0, per SM and clock.
 SFU_EXP_PER_CLOCK = 16
+# K4's device time per call: one torch.profiler window over this many
+# back-to-back calls (a call's ~0.01-0.05 ms is near the host's enqueue
+# time, so CUDA events over 50 calls may time the host).
+TOFTS_PROFILED_CALLS = 500
+# K4 is also checked on a finer quadrature grid than the fit's (Q = 3,500
+# of the kernel's 4,096 at dt = 0.002) with non-finite rates, at a ragged
+# N (tofts_edge_check).
+TOFTS_WIDE_DT = 0.002
+TOFTS_EDGE_N = 300
 
 
 def sm_clock_hz() -> float:
@@ -802,14 +885,18 @@ def tofts_rates(gen, n: int, device):
     return rate.to(device)
 
 
-def tofts_phase(device, quick: bool):
+def tofts_phase(device, quick: bool, jobs: list):
     """K4 against its plain version at the PK fit's voxel counts; timings
-    of kernel and plain version at a full chunk, its bound and the SFU
-    floor. Returns the kernels-line entry."""
+    of kernel and plain version at a full chunk, the host time of a call,
+    its bound and the SFU floor over the active (t, q) terms (the kernel's
+    rule, ops/kernels/tofts.active_lengths) and over the full grid, and
+    its device time per call queued on `jobs` (profiled_pass). Returns
+    the kernels-line entry."""
     import torch
 
     from stf_unet_tpu_torch.core.config import PKConfig
-    from stf_unet_tpu_torch.ops.kernels.tofts import (tofts_sums,
+    from stf_unet_tpu_torch.ops.kernels.tofts import (active_lengths,
+                                                      tofts_sums,
                                                       tofts_sums_plain)
     from stf_unet_tpu_torch.pk.aif import make_aif
     from stf_unet_tpu_torch.pk.tofts import ToftsQuadrature
@@ -818,6 +905,8 @@ def tofts_phase(device, quick: bool):
     quad = ToftsQuadrature.build(cfg.time_points, make_aif(cfg.aif_method),
                                  cfg.dt, device=device)
     t_steps, q = quad.lags.shape
+    active_terms = int(active_lengths(quad.lags, quad.weights,
+                                      quad.wlags).sum())
     gen = torch.Generator().manual_seed(4)
     entry = {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
              "bound_ms": None, "bound_by": None, "library_ms": None,
@@ -844,22 +933,83 @@ def tofts_phase(device, quick: bool):
                   f"{TOFTS_ATOL} + {TOFTS_RTOL} * {scale}")
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if n == TOFTS_N[0] and not quick:
-            elems = n * t_steps * q
             nbytes = 4 * (n + 3 * t_steps * q + 2 * n * t_steps)
-            bms, by = bound_ms(nbytes, 6.0 * elems, "f32")
             sms = torch.cuda.get_device_properties(device).multi_processor_count
             clock = sm_clock_hz()
-            sfu_ms = elems / (SFU_EXP_PER_CLOCK * sms * clock) * 1e3
+            active, full = n * active_terms, n * t_steps * q
+            bms, by = bound_ms(nbytes, 6.0 * active, "f32")
+            bms_full, _ = bound_ms(nbytes, 6.0 * full, "f32")
+
+            def sfu_ms(elems):
+                return elems / (SFU_EXP_PER_CLOCK * sms * clock) * 1e3
+
             entry.update(ms=cuda_ms(lambda: tofts_sums(*args), iters=50),
                          plain_ms=cuda_ms(lambda: tofts_sums_plain(*args),
                                           iters=5),
-                         bound_ms=bms, bound_by=by, sfu_floor_ms=sfu_ms,
-                         sfu_floor_clock_mhz=clock / 1e6)
+                         host_us=host_us(lambda: tofts_sums(*args)),
+                         bound_ms=bms, bound_by=by)
             line.update(kernel_ms=entry["ms"], plain_ms=entry["plain_ms"],
+                        host_us=entry["host_us"], library_ms=None,
                         bound_us=bms * 1e3, bound_by=by,
-                        sfu_floor_us=sfu_ms * 1e3, library_ms=None)
+                        sfu_floor_us=sfu_ms(active) * 1e3,
+                        sfu_floor_clock_mhz=clock / 1e6,
+                        active_share=active_terms / (t_steps * q),
+                        bound_us_full_grid=bms_full * 1e3,
+                        sfu_floor_us_full_grid=sfu_ms(full) * 1e3)
+            jobs.append(device_job(
+                {"kernel": "tofts_sums", "N": n}, lambda a=args:
+                tofts_sums(*a), "stf::tofts_sums", TOFTS_PROFILED_CALLS,
+                entry))
         print(json.dumps(line), flush=True)
+    tofts_edge_check(device)
     return entry
+
+
+def tofts_edge_check(device) -> None:
+    """K4 off the fit's defaults, against its plain version: a finer grid
+    (TOFTS_WIDE_DT, Q above the 2,048 points whose two staged rows fit the
+    48 KB a block gets by default, so the launch opts into more shared
+    memory) and rates of inf, NaN and -inf beside finite ones. NaN and inf
+    must sit where the plain sums have them (an all-zero row gives NaN
+    for such a rate, 0 * exp(NaN)); the finite values within
+    TOFTS_ATOL + TOFTS_RTOL * max."""
+    import torch
+
+    from stf_unet_tpu_torch.core.config import PKConfig
+    from stf_unet_tpu_torch.ops.kernels.tofts import (tofts_sums,
+                                                      tofts_sums_plain)
+    from stf_unet_tpu_torch.pk.aif import make_aif
+    from stf_unet_tpu_torch.pk.tofts import ToftsQuadrature
+
+    cfg = PKConfig()
+    quad = ToftsQuadrature.build(cfg.time_points, make_aif(cfg.aif_method),
+                                 TOFTS_WIDE_DT, device=device)
+    rate = tofts_rates(torch.Generator().manual_seed(6), TOFTS_EDGE_N,
+                       device)
+    rate[1:4] = torch.tensor([float("inf"), float("nan"), -float("inf")])
+    args = (rate, quad.lags, quad.weights, quad.wlags)
+    got = tofts_sums(*args)
+    want = tofts_sums_plain(*args)
+    torch.cuda.synchronize()
+    line = {"kernel": "tofts_sums", "check": "wide grid, non-finite rates",
+            "N": TOFTS_EDGE_N, "T": quad.lags.shape[0],
+            "Q": quad.lags.shape[1], "rtol": TOFTS_RTOL, "atol": TOFTS_ATOL}
+    for name, g, w in zip(("s", "s_lag"), got, want):
+        ok = torch.isfinite(w)
+        check(torch.equal(torch.isnan(g), torch.isnan(w))
+              and torch.equal(g[torch.isinf(w)], w[torch.isinf(w)]),
+              f"tofts_sums {line['check']} {name}: NaN / inf where the "
+              f"plain sums have none ({int(torch.isnan(g).sum())} NaN, "
+              f"{int(torch.isnan(w).sum())} in the plain sums)")
+        err = (g[ok] - w[ok]).abs().max().item()
+        scale = w[ok].abs().max().item()
+        line[f"{name}_max_abs_err"] = err
+        line[f"{name}_nan"] = int(torch.isnan(w).sum())
+        check(err <= TOFTS_ATOL + TOFTS_RTOL * scale,
+              f"tofts_sums {line['check']} {name}: max abs err {err} > "
+              f"{TOFTS_ATOL} + {TOFTS_RTOL} * {scale}")
+    check(line["Q"] > 2048, f"tofts_sums: the wide grid has Q={line['Q']}")
+    print(json.dumps(line), flush=True)
 
 
 def serving_phase(tmpdir: str):
@@ -1582,7 +1732,7 @@ def main() -> int:
     agg, recheck = kernel_phase(device, args.quick, jobs)
     agg["lstm_last_x_bwd"] = lstm_bwd_phase(device, args.quick, jobs)
     agg["warp"] = warp_phase(device, args.quick, jobs)
-    agg["tofts_sums"] = tofts_phase(device, args.quick)
+    agg["tofts_sums"] = tofts_phase(device, args.quick, jobs)
     if args.quick:
         print("quick: kernels build and agree with their plain versions")
         return 0
@@ -1641,9 +1791,8 @@ def main() -> int:
                  plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
                  bound_by=a["bound_by"], library_ms=a["library_ms"],
                  shapes=a["shapes"], dtype=dtypes.get(k["name"], "bf16"))
-        for extra in ("pk_shape", "sfu_floor_ms", "sfu_floor_clock_mhz",
-                      "tensor_cores", "device_ms", "library_device_ms",
-                      "host_us", "rule2_leave_alone"):
+        for extra in ("pk_shape", "tensor_cores", "device_ms",
+                      "library_device_ms", "host_us", "rule2_leave_alone"):
             if extra in a:
                 k[extra] = a[extra]
     print(json.dumps({"kernels": kernels}), flush=True)

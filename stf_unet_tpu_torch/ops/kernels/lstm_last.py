@@ -10,10 +10,19 @@ Gate sums and the (h, c) state are f32, and h stays f32 in the recurrent
 product, as in the TPU kernel.
 
 Bound on the H100: operations. At the serving shape (T=8, C=512, N=392
-at B=8) the recurrent product is 8*T*N*C^2 = 6.6 GFLOP, ~6.7 us at the
+at B=8) the recurrent product is 8*T*N*C^2 = 6.6 GFLOP, 6.7 us at the
 989 TFLOP/s bf16 peak, against 12.8 MB of x_proj (3.8 us at 3.35 TB/s).
-The first version runs its products on CUDA cores (see the source note in
-csrc/lstm_last.cu); its measured times are in PERF.md.
+
+Which calls take tensor cores (`tensor_core_last`, `TC_LAST_C`): bf16 at
+C = 256 and 512. That kernel splits the f32 h into bf16 hi + lo and
+forms hi W_hh + lo W_hh with WMMA products and f32 accumulators (2x the
+products of the bound), with the units split over the blocks of a
+thread-block cluster, each block's W_hh slice resident in its shared
+memory and h exchanged through distributed shared memory; W_hh is passed
+as given [C, 4C]. f32, and bf16 at any other C, run the CUDA-core kernel
+on W_hh repacked [C, C, 4]. A tensor-core call that fails to build or
+launch (a cluster the card refuses included) raises, it never falls
+back. Design and times: csrc/lstm_last.cu, PERF.md.
 
 On a CPU tensor the wrapper runs `lstm_last_plain`; on a CUDA tensor it
 launches the kernel or raises. It has no backward, as the TPU kernel has
@@ -29,7 +38,16 @@ import torch
 
 from stf_unet_tpu_torch.ops.kernels import build
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# Widths whose bf16 K3 runs on tensor cores (the .cu instantiates
+# lstm_last_tc_kernel for these and refuses any other C).
+TC_LAST_C = (256, 512)
+
+
+def tensor_core_last(dtype: torch.dtype, c: int) -> bool:
+    """Whether K3 runs on tensor cores: bf16 at C in TC_LAST_C, a rule on
+    dtype and C and never a fallback on failure."""
+    return dtype == torch.bfloat16 and c in TC_LAST_C
 
 
 def lstm_last_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
@@ -77,15 +95,17 @@ def lstm_last(x_proj: torch.Tensor, w_hh: torch.Tensor,
     if four_c % 4 or c % 32 or not 32 <= c <= 512:
         raise ValueError(f"lstm_last kernel takes C in 32..512, a multiple "
                          f"of 32; got x_proj width {four_c}")
+    tc = tensor_core_last(x_proj.dtype, c)
+    # tensor cores: W_hh as given, copied to shared memory in 16-byte runs
+    wh = build.aligned(w_hh) if tc else build.pack_gates(w_hh)
     lib = build.load("lstm_last", _ARGTYPES)
-    x_proj = x_proj.contiguous()
-    wh, bias = build.pack_gates(w_hh), b.contiguous()
+    x_proj, bias = x_proj.contiguous(), b.contiguous()
     out = torch.empty((n, c), dtype=x_proj.dtype, device=x_proj.device)
     with torch.cuda.device(x_proj.device):
         status = lib.stf_lstm_last(
             x_proj.data_ptr(), wh.data_ptr(), bias.data_ptr(),
             out.data_ptr(), t_steps, n, c, build.DTYPE_CODES[x_proj.dtype],
-            torch.cuda.current_stream(x_proj.device).cuda_stream)
+            int(tc), torch.cuda.current_stream(x_proj.device).cuda_stream)
     build.check_status("lstm_last", status)
     lstm_last.launches += 1
     return out

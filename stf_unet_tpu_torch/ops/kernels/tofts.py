@@ -11,11 +11,22 @@ weights * lags) -> (S [N, T], S_Δ [N, T]) f32 with
 without materialising the [N, T, Q] decay tensor (367 MB at N = 16384,
 T = 8, Q = 700).
 
-Bound on the H100: operations. At N = 16384, T = 8, Q = 700 (91.75 M
-elements, ~6 f32 operations each: 0.55 GFLOP) the least time is 8.2 us at
-67 TFLOP/s, against 0.35 us for its ~1.2 MB of traffic; the exponentials
-alone need the SFU, 16 a clock per SM, ~22-25 us. Its measured times are
-in PERF.md.
+The kernel sums each row t only over its active terms, q below
+`active_lengths(...)[t]` (one past the last q where lags, weights or
+wlags is non-zero); the terms after it are 0 * exp(0) = 0 for a finite
+rate. The PK fit's masked tables are half zeros (row t has 100*t active
+points of 700), so half the full grid's terms. A voxel whose rate is not
+finite (inf, NaN) is summed over the whole row, as the TPU kernel and the
+plain sums do, so it gets their NaN where a dropped term is 0 * exp(NaN).
+
+Bound on the H100: operations, counted over the active terms. At
+N = 16384 with the fit's tables (45.9 M active elements, ~6 f32
+operations each) the least time is 4.1 us at 67 TFLOP/s, against 0.35 us
+for its ~1.2 MB of traffic; the exponentials alone need the SFU, 16 a
+clock per SM, 11 us at 1.98 GHz (8.2 and 22 us on the full grid). The
+kernel takes one MUFU op per term (ex2 of a rate pre-scaled by log2(e)),
+vector loads of the staged tables, and balances a block's work by
+pairing rows t and T-1-t. Its measured times are in PERF.md.
 
 On a CPU tensor the wrapper runs `tofts_sums_plain`; on a CUDA tensor it
 launches the kernel or raises.
@@ -31,9 +42,10 @@ import torch
 from stf_unet_tpu_torch.ops.kernels import build
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-# The kernel stages its block's three [Q] rows in shared memory without
-# raising the 48 KB default limit: 12 * Q bytes.
-MAX_Q = 48 * 1024 // 12
+# The kernel stages its block's two rows of the three tables in shared
+# memory, 24 * Q bytes, opting in above the 48 KB default (Q > 2048); the
+# .cu's kMaxQ.
+MAX_Q = 4096
 
 
 def _check(rate: torch.Tensor, lags: torch.Tensor, weights: torch.Tensor,
@@ -48,6 +60,16 @@ def _check(rate: torch.Tensor, lags: torch.Tensor, weights: torch.Tensor,
         if v.shape != lags.shape:
             raise ValueError(f"tofts_sums: {name} is {tuple(v.shape)}, lags "
                              f"{tuple(lags.shape)}")
+
+
+def active_lengths(lags: torch.Tensor, weights: torch.Tensor,
+                   wlags: torch.Tensor) -> torch.Tensor:
+    """[T] int64: per row, one past the last q where lags, weights or
+    wlags is non-zero (0 for an all-zero row), the kernel's rule for the
+    terms it sums. Every term past it is 0 * exp(-rate * 0)."""
+    nonzero = (lags != 0) | (weights != 0) | (wlags != 0)     # [T, Q]
+    q = torch.arange(lags.shape[1] + 1, device=lags.device)   # 0 = none
+    return (torch.nn.functional.pad(nonzero, (1, 0)) * q).amax(dim=1)
 
 
 def tofts_sums_plain(rate: torch.Tensor, lags: torch.Tensor,
