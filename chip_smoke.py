@@ -15,7 +15,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      deterministic, with the host time of a call and the design's byte
      floor at each timed training shape; K2 (the augmentation warp) at
      B=16, 256^2 -> 224^2, with the frames and mask (Cs=9) and with the
-     PK maps too (Cs=12);
+     PK maps too (Cs=12), on uniformly scattered coordinates and at a
+     200^2 output with small valid regions, each line with its blocks by
+     path (the training draws must all stage their source box in shared
+     memory, the scattered case must take the direct gather);
      K4 (the PK fit's quadrature sums) at N = 16384, 8951 and 256 voxels,
      T=8, Q=700, with its bound and SFU floor over the active (t, q)
      terms and over the full grid, and at Q=3500 with rates of inf, NaN
@@ -732,47 +735,103 @@ def warp_inputs(device, pk_maps: bool):
     return aug, stacked, gy, gx, valid
 
 
-def warp_phase(device, quick: bool, jobs: list):
-    """K2 against its plain version at the training shape, without PK maps
-    (Cs=9) and with them (Cs=12); timings of kernel, plain version and
-    F.grid_sample (CUDA events over 20 calls; the host time of one warp()
-    call), and queued on `jobs` (profiled_pass) the device time per call
-    over WARP_PROFILED_CALLS calls of K2 and of F.grid_sample, and rule
-    2's test: K2 is left alone where its device time is within 2x its
-    bound and no slower than F.grid_sample's. Returns the kernels-line
-    entry (Cs=9, with the Cs=12 figures under "pk_shape")."""
+def warp_case(label: str, args, path: str) -> dict:
+    """K2 once on `args` with its path counters, against warp_plain: the
+    nearest values equal, bilinear within WARP_TOL, all finite, and every
+    block on `path` ("staged" or "direct"), as the box rule's emulation
+    (warp_boxes) has it. Returns the case's line."""
     import torch
 
+    from stf_unet_tpu_torch.ops.kernels.warp import (warp, warp_boxes,
+                                                     warp_plain)
+
+    stacked, gy, gx = args[:3]
+    staged = warp_boxes(gy, gx, *stacked.shape[2:], stacked.shape[1])[
+        "staged"]
+    want = {"staged": int(staged.sum()), "direct": int((~staged).sum())}
+    paths = torch.zeros(2, dtype=torch.int64, device=stacked.device)
+    bil, near = warp(*args, paths=paths)
+    bil_p, near_p = warp_plain(*args)
+    torch.cuda.synchronize()
+    err = (bil - bil_p).abs().max().item()
+    near_diff = int((near != near_p).sum().item())
+    blocks = dict(zip(("staged", "direct"), paths.tolist()))
+    check(bool(torch.isfinite(bil).all() and torch.isfinite(near).all()),
+          f"warp {label}: non-finite output")
+    check(near_diff == 0, f"warp {label}: {near_diff} nearest (label) "
+                          f"values differ from the plain version")
+    check(err <= WARP_TOL, f"warp {label}: bilinear max abs err {err} > "
+                           f"{WARP_TOL}")
+    check(blocks == want and blocks[path] == staged.numel(),
+          f"warp {label}: blocks by path {blocks}, the box rule's {want}; "
+          f"expected all {path}")
+    return {"kernel": "warp", "case": label, "B": stacked.shape[0],
+            "Cs": stacked.shape[1], "src": list(stacked.shape[2:]),
+            "out": gy.shape[-1], "max_abs_err": err,
+            "nearest_mismatches": near_diff, "tol": WARP_TOL,
+            "blocks": blocks}
+
+
+def warp_edge_cases(device) -> None:
+    """K2 off the timed shapes, checked against warp_plain: uniformly
+    scattered coordinates (every tile's box spans the canvas: the direct
+    path), and TrainAugment's draws at Ho = Wo = 200 (not a multiple of
+    the tile) with valid regions well below a canvas 250 wide (not a
+    multiple of 8: the staged path's byte copies)."""
+    import torch
+
+    from stf_unet_tpu_torch.core.config import DataConfig
+    from stf_unet_tpu_torch.core.prng import augment_generator
+    from stf_unet_tpu_torch.data.transforms import TrainAugment
+
+    aug, stacked, gy, gx, valid = warp_inputs(device, False)
+    gen = torch.Generator().manual_seed(3)
+    gy, gx = (torch.rand(gy.shape, generator=gen).mul_(WARP_SRC + 8)
+              .sub_(4).to(device) for _ in range(2))
+    print(json.dumps(warp_case("scattered", (stacked, gy, gx, valid,
+                                             aug.alpha, aug.beta),
+                               "direct")), flush=True)
+    aug = TrainAugment(DataConfig(crop_size=200))
+    sizes = torch.tensor([[96, 128], [160, 112], [200, 200], [64, 72]],
+                         dtype=torch.int32).repeat(WARP_B // 4, 1)
+    gy, gx = aug.grids(augment_generator(0, 0, 1), sizes, device)
+    valid = sizes.to(device, torch.float32)
+    narrow = stacked[..., :250].contiguous()
+    print(json.dumps(warp_case("out200_small_valid_w250", (
+        narrow, gy, gx, valid, aug.alpha, aug.beta), "staged")),
+        flush=True)
+
+
+def warp_phase(device, quick: bool, jobs: list):
+    """K2 against its plain version at the training shape, without PK maps
+    (Cs=9) and with them (Cs=12), each line with its blocks by path (the
+    training draws must all take the staged path), then warp_edge_cases;
+    timings of kernel, plain version and F.grid_sample at the training
+    shapes (CUDA events over 20 calls; the host time of one warp() call),
+    and queued on `jobs` (profiled_pass) the device time per call over
+    WARP_PROFILED_CALLS calls of K2 and of F.grid_sample, and rule 2's
+    test: K2 is left alone where its device time is within 2x its bound
+    and no slower than F.grid_sample's. Returns the kernels-line entry
+    (Cs=9, with the Cs=12 figures under "pk_shape")."""
     from stf_unet_tpu_torch.ops.kernels.warp import warp, warp_plain
 
     entries = []
     for pk_maps in (False, True):
         aug, stacked, gy, gx, valid = warp_inputs(device, pk_maps)
         args = (stacked, gy, gx, valid, aug.alpha, aug.beta)
-        bil, near = warp(*args)
-        bil_p, near_p = warp_plain(*args)
-        torch.cuda.synchronize()
         cs = stacked.shape[1]
-        err = (bil - bil_p).abs().max().item()
-        near_diff = int((near != near_p).sum().item())
-        check(bool(torch.isfinite(bil).all()),
-              f"warp Cs={cs}: non-finite output")
-        check(near_diff == 0, f"warp Cs={cs}: {near_diff} nearest (label) "
-                              f"values differ from the plain version")
-        check(err <= WARP_TOL, f"warp Cs={cs}: bilinear max abs err {err} "
-                               f"> {WARP_TOL}")
-        line = {"kernel": "warp", "B": WARP_B, "Cs": cs, "src": WARP_SRC,
-                "out": gy.shape[-1], "max_abs_err": err,
-                "nearest_mismatches": near_diff, "tol": WARP_TOL}
-        entry = {"max_abs_err": err, "ms": None, "plain_ms": None,
-                 "bound_ms": None, "bound_by": None, "library_ms": None,
+        line = warp_case(f"train Cs={cs}", args, "staged")
+        entry = {"max_abs_err": line["max_abs_err"], "ms": None,
+                 "plain_ms": None, "bound_ms": None, "bound_by": None,
+                 "library_ms": None,
                  "shapes": [{"B": WARP_B, "Cs": cs, "H": WARP_SRC,
                              "W": WARP_SRC, "Ho": gy.shape[1],
                              "Wo": gy.shape[2]}]}
         if not quick:
+            bil_n = WARP_B * (cs - 1) * gy.shape[1] * gy.shape[2]
             nbytes = (stacked.numel() + 4 * (gy.numel() + gx.numel()
                                              + valid.numel())
-                      + 4 * (bil.numel() + near.numel()))
+                      + 4 * (bil_n + gy.numel()))
             bms, by = bound_ms(nbytes, 0.0, "f32")
             library = grid_sample_fn(stacked, gy, gx)
             entry.update(ms=cuda_ms(lambda: warp(*args)),
@@ -790,6 +849,7 @@ def warp_phase(device, quick: bool, jobs: list):
                 entry))
         print(json.dumps(line), flush=True)
         entries.append(entry)
+    warp_edge_cases(device)
     entry, pk_entry = entries
     entry["max_abs_err"] = max(entry["max_abs_err"], pk_entry["max_abs_err"])
     entry["pk_shape"] = pk_entry

@@ -3,7 +3,10 @@
 Replaces the TPU kernel `stf_unet_tpu/ops/pallas/warp_kernel.py:
 _pallas_warp` (kernel body `_warp_kernel`, public
 `warp_bilinear_nearest_mxu`) with the hand-written CUDA kernel
-`csrc/warp.cu`: a direct gather, not the TPU's one-hot MXU formulation.
+`csrc/warp.cu`: a gather from each 16x16 output tile's source box staged
+in shared memory (or, where the box outgrows the budget, from global
+memory), not the TPU's one-hot MXU formulation. `warp_boxes` is the
+kernel's tiling and box rule in plain PyTorch.
 
 stacked [B, Cs, H, W] (values 0..255; the frames, then the mask last),
 gy / gx [B, Ho, Wo] f32 source coordinates, valid [B, 2] (valid_h,
@@ -22,14 +25,19 @@ launches the kernel (which reads the source as uint8) or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from stf_unet_tpu_torch.ops.kernels import build
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-             + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+             + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2)
+# csrc/warp.cu's tile edge, a staged plane's shared-memory region in bytes
+# (its last 8 bytes zero) and the most planes it stages.
+TILE = 16
+PLANE_BYTES = 2560
+MAX_PLANES = 18
 
 
 def _check(stacked: torch.Tensor, gy: torch.Tensor, gx: torch.Tensor,
@@ -93,10 +101,52 @@ def warp_plain(stacked: torch.Tensor, gy: torch.Tensor, gx: torch.Tensor,
     return bil, near
 
 
+def _clip(v: torch.Tensor, size: int) -> torch.Tensor:
+    """The kernel's clip_index: NaN -> 0, then clamp to [0, size-1]."""
+    v = torch.where(torch.isnan(v), torch.zeros_like(v), v)
+    return v.clamp(0, size - 1).to(torch.int64)
+
+
+def warp_boxes(gy: torch.Tensor, gx: torch.Tensor, h: int, w: int,
+               cs: int) -> dict:
+    """The kernel's tiling and box rule: for each TILE x TILE output tile
+    of gy, gx [B, Ho, Wo] over a [Cs, h, w] source, the min and max of its
+    pixels' clipped tap indices (floor, floor + 1 and rint, in y and x),
+    the box's left edge `x0` (rounded down to 8 bytes), its row `stride`
+    in bytes (the 8-byte chunks to x_hi, made odd), and whether it is
+    staged: Cs <= MAX_PLANES and a plane of the box fits PLANE_BYTES less
+    its 8 zero bytes. Every entry is a [B, Ho/TILE, Wo/TILE] tensor
+    (tiles rounded up), int64 but `staged` (bool)."""
+    bsz, ho, wo = gy.shape
+    th, tw = -(-ho // TILE), -(-wo // TILE)
+    out = {}
+    for axis, g, size in (("y", gy, h), ("x", gx, w)):
+        g = g.to(torch.float32)
+        f = torch.floor(g)
+        taps = torch.stack([_clip(f, size), _clip(f + 1, size),
+                            _clip(torch.round(g), size)])
+        pad = (0, tw * TILE - wo, 0, th * TILE - ho)
+        for name, red, fill in (("lo", torch.amin, size),
+                                ("hi", torch.amax, -1)):
+            t = torch.nn.functional.pad(red(taps, 0), pad, value=fill)
+            out[f"{axis}_{name}"] = red(
+                t.view(bsz, th, TILE, tw, TILE), dim=(2, 4))
+    out["x0"] = out["x_lo"] & ~7
+    out["stride"] = (((out["x_hi"] >> 3) - (out["x_lo"] >> 3) + 1) | 1) * 8
+    rows = out["y_hi"] - out["y_lo"] + 1
+    out["staged"] = ((rows * out["stride"] <= PLANE_BYTES - 8)
+                     & (cs <= MAX_PLANES))
+    return out
+
+
 def warp(stacked: torch.Tensor, gy: torch.Tensor, gx: torch.Tensor,
          valid: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
-         fill: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(bil [B, Cs-1, Ho, Wo], near [B, Ho, Wo]), see module docstring."""
+         fill: float = 0.0, paths: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(bil [B, Cs-1, Ho, Wo], near [B, Ho, Wo]), see module docstring.
+    `paths`, on CUDA only: an int64 [2] tensor on the source's device to
+    which the kernel adds its blocks that took the staged ([0]) and the
+    direct ([1]) path."""
     if stacked.device.type == "cpu":
         return warp_plain(stacked, gy, gx, valid, alpha, beta, fill)
     if stacked.device.type != "cuda":
@@ -109,6 +159,12 @@ def warp(stacked: torch.Tensor, gy: torch.Tensor, gx: torch.Tensor,
         if v.device != stacked.device:
             raise ValueError(f"warp: {name} is on {v.device}, the source on "
                              f"{stacked.device}")
+    if paths is not None and (paths.dtype != torch.int64
+                              or tuple(paths.shape) != (2,)
+                              or paths.device != stacked.device
+                              or not paths.is_contiguous()):
+        raise ValueError(f"warp: paths must be a contiguous int64 [2] on "
+                         f"{stacked.device}")
     bsz, cs, h, w = stacked.shape
     ho, wo = gy.shape[1:]
     lib = build.load("warp", _ARGTYPES)
@@ -125,6 +181,7 @@ def warp(stacked: torch.Tensor, gy: torch.Tensor, gx: torch.Tensor,
             stacked.data_ptr(), gy.data_ptr(), gx.data_ptr(),
             valid.data_ptr(), bil.data_ptr(), near.data_ptr(), bsz, cs, h, w,
             ho, wo, float(alpha), float(beta), float(fill),
+            None if paths is None else paths.data_ptr(),
             torch.cuda.current_stream(stacked.device).cuda_stream)
     build.check_status("warp", status)
     warp.launches += 1
