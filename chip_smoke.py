@@ -60,11 +60,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      one step (with the port's kernels by name).
   8. training path against plain path: one f32 step through the kernels
      and through the scan + plain warp; loss and every gradient.
-  9. PK maps: `python -m stf_unet_tpu_torch.pk.maps` (LM) over the tree's
+  9. UNet training: cli/train --model unet (the vanilla UNet at full
+     width, base_c = 64, T = 8 frames as channels; bf16, batch 16, crop
+     224, 3 epochs = 12 steps) on the same tree: every loss finite, K2
+     launched (Cs = 9), and one comparison render per test record.
+ 10. UNet steps: phase 7 on the UNet, with its step's convolution FLOPs
+     (3.555 TFLOP at batch 16, counted from the layers' shapes) against
+     the card's dense bf16 peak.
+ 11. UNet parity: the UNet's best checkpoint in f32 on the card and on the
+     CPU, the logits of two test slices within 1e-4 of max |logit|.
+ 12. cli/test: `stf_unet_tpu_torch.cli.test.main` (bf16) on the best
+     checkpoints of phases 6 and 9, with --per-patient --surface-metrics
+     --threshold-sweep (dice within 1e-3 of cli/train's test pass), with
+     --tta and with --tiled (finite dice); K1 and K3 launched in each run
+     on the STF-LSTM-UNet; wall ms per test slice.
+ 13. PK maps: `python -m stf_unet_tpu_torch.pk.maps` (LM) over the tree's
      12 volumes; finite maps for each, K4 launched 2 x lm_iters times per
      voxel chunk, seconds per volume, a torch.profiler view of one chunk,
      and one volume's maps through K4 against the plain sums.
- 10. PK training and serving: cli/train with --use-pk-maps (bf16, batch
+ 14. PK training and serving: cli/train with --use-pk-maps (bf16, batch
      16, crop 224, 2 epochs = 8 steps), every loss finite and K1, K1b, K2
      and K3 launched; then the best checkpoint served through
      cli/serve.build_server, answering requests of 11 planes (8 frames
@@ -1352,10 +1366,12 @@ def training_phase(tmpdir: str, data: str, device: str = "cuda"):
     return launches, result
 
 
-def train_objects(data: str, dtype, device, batch: int, pk: bool = False):
+def train_objects(data: str, dtype, device, batch: int, pk: bool = False,
+                  model_name: str = "stflstm"):
     """Model (seeded, full width), optimizer, augmentation and one host
     batch of the synthetic tree, as cli/train builds them; with pk, the
-    PK-maps model and batches that carry the maps."""
+    PK-maps model and batches that carry the maps; model_name "unet", the
+    vanilla UNet at base_c = 64."""
     import torch
 
     from stf_unet_tpu_torch.core.config import (DataConfig, ModelConfig,
@@ -1373,25 +1389,58 @@ def train_objects(data: str, dtype, device, batch: int, pk: bool = False):
     host = next(iter(HostLoader(index, batch, shuffle=False, use_pk_maps=pk,
                                 prefetch=0).epoch(0)))
     torch.manual_seed(0)
-    model = create_model(ModelConfig(use_pk_maps=pk), dtype=dtype).to(device)
+    model = create_model(ModelConfig(model=model_name, use_pk_maps=pk),
+                         dtype=dtype).to(device)
     state = TrainState(model, make_optimizer(OptimConfig(), model,
                                              torch.device(device)))
     return state, TrainAugment(cfg), host
 
 
-def step_phase(data: str, device: str = "cuda", pk: bool = False):
+def conv_flops(model, x) -> float:
+    """Multiply-add FLOPs (2 per MAC) of the convolutions and transposed
+    convolutions of one forward of `model` on x, counted from the shapes
+    each layer sees."""
+    import torch
+
+    from stf_unet_tpu_torch.ops.conv import Conv2d, ConvTranspose2d
+
+    total = [0.0]
+
+    def hook(mod, inp, out):
+        kh, kw = mod.kernel_size
+        per = 2.0 * kh * kw * mod.in_channels * mod.out_channels / mod.groups
+        pixels = (inp[0] if isinstance(mod, ConvTranspose2d) else out)
+        total[0] += per * pixels[:, 0].numel()
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (Conv2d, ConvTranspose2d))]
+    try:
+        with torch.no_grad():
+            model.eval()(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def step_phase(data: str, device: str = "cuda", pk: bool = False,
+               model_name: str = "stflstm"):
     """bf16 training steps at batch 16 on one fixed batch: the loss of
     repeated steps must fall; ms per step and samples/s over back-to-back
     steps; a torch.profiler view of one step (kernel time by name, the
-    device's idle share). pk: the PK-maps model on batches with maps."""
+    device's idle share). pk: the PK-maps model on batches with maps.
+    model_name "unet": the vanilla UNet, with its step's convolution FLOPs
+    (3 x one forward's) against the card's dense bf16 peak."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from stf_unet_tpu_torch.core.prng import augment_generator
+    from stf_unet_tpu_torch.models.registry import preprocess_input
     from stf_unet_tpu_torch.train.loop import train_step
 
     state, augment, host = train_objects(data, torch.bfloat16, device,
-                                         TRAIN_BATCH, pk=pk)
+                                         TRAIN_BATCH, pk=pk,
+                                         model_name=model_name)
     dev = torch.device(device)
 
     def step():
@@ -1424,8 +1473,26 @@ def step_phase(data: str, device: str = "cuda", pk: bool = False):
     busy = sum(dev_ms(e) for e in kernels)
     ours = sum(dev_ms(e) for e in kernels if "stf::" in e.key)
     top = sorted(kernels, key=dev_ms, reverse=True)[:12]
+    flops = {}
+    if model_name == "unet":
+        images, _ = augment(augment_generator(0, 0, 0),
+                            torch.from_numpy(host.frames).to(dev),
+                            torch.from_numpy(host.masks).to(dev), host.sizes)
+        step_flop = 3 * conv_flops(state.model,
+                                   preprocess_input(images, state.model))
+        flops = {"step_tflop": step_flop / 1e12,
+                 "bound_ms": step_flop / PEAK_FLOPS["bf16"] * 1e3,
+                 "share_of_bf16_peak": step_flop / PEAK_FLOPS["bf16"]
+                 / (step_ms * 1e-3),
+                 "kernel_share_of_bf16_peak": (
+                     step_flop / PEAK_FLOPS["bf16"] / (busy * 1e-3))
+                 if busy else "not measured"}
+        check(abs(step_flop - UNET_STEP_FLOP) <= 1e-3 * UNET_STEP_FLOP,
+              f"UNet step FLOPs {step_flop:.4g}, expected "
+              f"{UNET_STEP_FLOP:.4g}")
     print(json.dumps({"train_steps": {
-        "pk_maps": pk, "batch": TRAIN_BATCH, "fixed_batch_losses": losses,
+        "model": model_name, "pk_maps": pk, "batch": TRAIN_BATCH,
+        "fixed_batch_losses": losses, **flops,
         "ms_per_step": step_ms,
         "samples_per_s": TRAIN_BATCH * 1e3 / step_ms,
         "profiled_step_wall_ms": prof_ms,
@@ -1532,6 +1599,174 @@ def train_path_phase(data: str, device: str = "cuda"):
         check(err <= PATH_ERR_RATIO * per_p[n] + PATH_ERR_FLOOR,
               f"kernel path: {n} gradient error {err} > {PATH_ERR_RATIO} x "
               f"the plain f32 path's {per_p[n]} + {PATH_ERR_FLOOR}")
+
+
+# The vanilla UNet at full width (base_c = 64, T = 8 stacked frames, 2
+# classes): one forward at 224^2 is 74,051,747,840 FLOPs of convolutions
+# (2 per multiply-add), a bf16 training step at batch 16 three forwards'
+# worth: 3.555 TFLOP, 3.59 ms at the dense bf16 peak. Its training runs
+# through cli/train like the STF model's (TRAIN_BATCH, TRAIN_EPOCHS, K2
+# with Cs = T + 1); its f32 eval logits on the card are held to the port's
+# CPU logits within UNET_PARITY_RTOL * max |logit| (cuDNN and oneDNN sum the
+# same f32 products in other orders, TF32 off), on UNET_PARITY_BATCH test
+# slices.
+UNET_STEP_FLOP = 3 * TRAIN_BATCH * 74_051_747_840
+UNET_PARITY_BATCH = 2
+UNET_PARITY_RTOL = 1e-4
+# cli/test on the STF-LSTM-UNet's and the UNet's best checkpoint (bf16, as
+# cli/train's test pass ran them): its dice within CLI_TEST_DICE_TOL of that
+# test pass's (batch 1 against batch 16: cuDNN may take other algorithms,
+# whose bf16 roundings flip a few near-tie pixels).
+CLI_TEST_DICE_TOL = 1e-3
+CLI_TEST_MODES = {"reports": ["--per-patient", "--surface-metrics",
+                              "--threshold-sweep"],
+                  "tta": ["--tta"], "tiled": ["--tiled"]}
+
+
+def unet_training_phase(tmpdir: str, data: str, device: str = "cuda"):
+    """cli/train --model unet at full width, bf16: every loss finite,
+    >= 10 steps over >= 2 epochs, K2 launched, latest/best written, and
+    one comparison render per test record. Returns (launch counts, the
+    run's result, its save directory)."""
+    import math
+
+    from stf_unet_tpu_torch.cli import train as train_cli
+    from stf_unet_tpu_torch.data.index import DatasetIndex
+
+    kernels = reset_counts()
+    weights = os.path.join(tmpdir, "weights_unet")
+    out = os.path.join(tmpdir, "out_unet")
+    t0 = time.perf_counter()
+    result = train_cli.run([
+        "--data-path", data, "--model", "unet", "--amp", "true",
+        "--use-subtraction",
+        "--batch-size", str(TRAIN_BATCH), "--epochs", str(TRAIN_EPOCHS),
+        "--eval-batch-size", str(TRAIN_BATCH), "--seed", "0",
+        "--data-base-size", str(TRAIN_SRC),
+        "--data-crop-size", str(TRAIN_CROP),
+        "--save-dir", weights, "--output-dir", out,
+        "--print-freq", "1", "--device", device])
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    losses = [e["train_loss"] for e in result["epochs"]]
+    check(len(result["epochs"]) >= 2 and result["steps"] >= 10,
+          f"UNet: trained {len(result['epochs'])} epochs, "
+          f"{result['steps']} steps, expected >= 2 and >= 10")
+    check(all(math.isfinite(v) for v in losses),
+          f"UNet: non-finite training loss: {losses}")
+    check(launches["warp"] > 0, "kernel warp never launched while training "
+                                "the UNet")
+    for kind in ("latest", "best"):
+        path = os.path.join(weights, f"unet_{kind}_model.pth")
+        check(os.path.isfile(path), f"no UNet {kind} checkpoint at {path}")
+    records = len(DatasetIndex(data, "test", tuple(
+        f"SUB{i}" for i in range(1, T_STEPS + 1))))
+    renders = sorted(os.listdir(os.path.join(out, "test_results")))
+    check(renders == [f"unet_{i:03d}_compare.png" for i in range(records)],
+          f"UNet test pass: {len(renders)} comparison renders for "
+          f"{records} test records")
+    print(json.dumps({"unet_training": {
+        "wall_s": wall, "epochs": result["epochs"],
+        "steps": result["steps"], "best_dice": result["best_dice"],
+        "test_dice": result["test"]["dice"], "test_renders": len(renders),
+        "launches": launches}}), flush=True)
+    return launches, result, weights
+
+
+def unet_parity_phase(weights: str, data: str, device: str = "cuda"):
+    """The UNet's best checkpoint in f32 on the card and on the CPU: the
+    logits of UNET_PARITY_BATCH test slices within UNET_PARITY_RTOL * max
+    |logit|, argmax equal wherever the two classes differ by more."""
+    import torch
+
+    from stf_unet_tpu_torch.cli.common import restore_for_inference
+    from stf_unet_tpu_torch.data.index import DatasetIndex
+    from stf_unet_tpu_torch.data.transforms import normalize
+    from stf_unet_tpu_torch.models.registry import preprocess_input
+    from stf_unet_tpu_torch.train.loop import eval_batches_from_index
+
+    path = os.path.join(weights, "unet_best_model.pth")
+    logits, secs = {}, {}
+    for label, dev in (("card", device), ("cpu", "cpu")):
+        model, cfg, _, _ = restore_for_inference(
+            "unet", path, use_subtraction=True, dtype="f32", device=dev)
+        index = DatasetIndex(data, "test", cfg.resolved_sequence_types)
+        image, _ = next(iter(eval_batches_from_index(
+            index, cfg, batch_size=UNET_PARITY_BATCH, prefetch=0)))
+        x = normalize(torch.from_numpy(image).to(dev), cfg.mean, cfg.std)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits[label] = model(preprocess_input(x, model))["out"].cpu()
+        secs[label] = time.perf_counter() - t0
+    want, got = logits["cpu"], logits["card"]
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    margin = (want[..., 1] - want[..., 0]).abs()
+    decided = margin > 2 * UNET_PARITY_RTOL * scale
+    agree = (got.argmax(-1) == want.argmax(-1))[decided].float().mean()
+    print(json.dumps({"unet_parity": {
+        "batch": list(want.shape), "max_abs_err": err, "max_abs_logit": scale,
+        "rtol": UNET_PARITY_RTOL, "decided_share": decided.float().mean()
+        .item(), "argmax_agree_decided": agree.item(),
+        "card_s": secs["card"], "cpu_s": secs["cpu"]}}), flush=True)
+    check(torch.isfinite(got).all().item(), "UNet: non-finite card logits")
+    check(err <= UNET_PARITY_RTOL * scale,
+          f"UNet f32 logits on the card: max abs err {err} > "
+          f"{UNET_PARITY_RTOL} x {scale}")
+    check(agree.item() == 1.0, "UNet: argmax differs where decided")
+
+
+def cli_test_phase(tmpdir: str, data: str, runs, device: str = "cuda"):
+    """stf_unet_tpu_torch.cli.test.main on each (model, save directory,
+    cli/train test-pass dice) of `runs`, bf16: with the report flags (dice
+    within CLI_TEST_DICE_TOL of the test pass's), with --tta and with
+    --tiled (finite dice); on the STF-LSTM-UNet every run launches K1 and
+    K3. Wall ms per test slice, and without the checkpoint's restore.
+    Returns the launch counts, summed."""
+    import math
+
+    from stf_unet_tpu_torch.cli import test as cli_test
+    from stf_unet_tpu_torch.data.index import DatasetIndex
+
+    slices = len(DatasetIndex(data, "test", tuple(
+        f"SUB{i}" for i in range(1, T_STEPS + 1))))
+    total = {name: 0 for name in counters()}
+    for model, weights, train_dice in runs:
+        for mode, flags in CLI_TEST_MODES.items():
+            kernels = reset_counts()
+            t0 = time.perf_counter()
+            metrics = cli_test.main([
+                "--model", model, "--model-dir", weights, "--root", data,
+                "--use-subtraction", "--dtype", "bf16", "--device", device,
+                "--output-dir", os.path.join(tmpdir, f"cli_{model}_{mode}"),
+                *flags])
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in kernels.items()}
+            for name, n in launches.items():
+                total[name] += n
+            dice = metrics["dice"]
+            line = {"model": model, "mode": mode, "slices": slices,
+                    "dice": dice, "train_test_dice": train_dice,
+                    "ms_per_slice": wall * 1e3 / slices,
+                    "restore_s": metrics["seconds"]["restore"],
+                    "ms_per_slice_after_restore":
+                        metrics["seconds"]["test"] * 1e3 / slices,
+                    "launches": launches}
+            if mode == "reports":
+                line["patients"] = metrics["patient_report"]["summary"]
+                line["roc_auc"] = metrics["threshold_sweep"]["roc_auc"]
+            print(json.dumps({"cli_test": line}), flush=True)
+            check(math.isfinite(dice), f"cli/test {model} {mode}: dice "
+                                       f"{dice}")
+            if mode == "reports":
+                check(abs(dice - train_dice) <= CLI_TEST_DICE_TOL,
+                      f"cli/test {model}: dice {dice}, cli/train's test "
+                      f"pass {train_dice}")
+            if model == "stflstm":
+                for name in ("lstm_last_x", "lstm_last"):
+                    check(launches[name] > 0, f"kernel {name} never "
+                                              f"launched in cli/test {mode}")
+    return total
 
 
 # PK maps phase: the tree's 12 volumes (8 training, 2 val, 2 test
@@ -1810,9 +2045,20 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmpdir:
         data = write_tree(tmpdir)
-        train_launches, _ = training_phase(tmpdir, data)
+        train_launches, train_result = training_phase(tmpdir, data)
         step_phase(data)
         train_path_phase(data)
+        torch.cuda.empty_cache()
+        # the vanilla UNet: training, steps, parity; then cli/test on both
+        # models' best checkpoints
+        unet_launches, unet_result, unet_weights = unet_training_phase(
+            tmpdir, data)
+        step_phase(data, model_name="unet")
+        unet_parity_phase(unet_weights, data)
+        cli_launches = cli_test_phase(tmpdir, data, [
+            ("stflstm", os.path.join(tmpdir, "weights"),
+             train_result["test"]["dice"]),
+            ("unet", unet_weights, unet_result["test"]["dice"])])
         torch.cuda.empty_cache()
         # the PK path: maps, then training and serving on them
         pk_runs = [pk_maps_phase(data)]
@@ -1845,6 +2091,8 @@ def main() -> int:
         a = agg[k["name"]]
         by_path = {"serve": serve_launches[k["name"]],
                    "train": train_launches[k["name"]],
+                   "unet_train": unet_launches[k["name"]],
+                   "cli_test": cli_launches[k["name"]],
                    "pk": pk_launches[k["name"]]}
         k.update(launches=sum(by_path.values()), launches_by_path=by_path,
                  max_abs_err=a["max_abs_err"], ms=a["ms"],

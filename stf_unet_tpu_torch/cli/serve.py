@@ -3,13 +3,15 @@ segmentation over HTTP with dynamic batching (counterpart of
 stf_unet_tpu/cli/serve.py).
 
 Usage: python -m stf_unet_tpu_torch.cli.serve --weights model.pth
-       [--model stflstm] [--host 127.0.0.1] [--port 8421] [--max-batch 8]
+       [--model stflstm|unet] [--host 127.0.0.1] [--port 8421] [--max-batch 8]
        [--batch-window-ms 5] [--dtype bf16|f32] [--crop-size 224]
        [--device cuda]
 
 --weights is a reference-layout checkpoint, {"model": state_dict,
-"epoch": N}: `python -m stf_unet_tpu.cli.migrate out.pth --model stflstm
---save-dir <jax run> --reverse` writes one from a JAX checkpoint. A PK
+"epoch": N}, of the model `--model` names (STF-LSTM-UNet or the vanilla
+UNet): cli/train writes them, and `python -m stf_unet_tpu.cli.migrate
+out.pth --model stflstm --save-dir <jax run> --reverse` writes one from a
+JAX checkpoint. A PK
 checkpoint (trained with --use-pk-maps) takes requests of T + 3 planes:
 the frames, then the Ktrans, ve and vp maps.
 

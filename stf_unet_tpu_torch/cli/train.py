@@ -2,16 +2,18 @@
 ref:train.py:124-401).
 
     python -m stf_unet_tpu_torch.cli.train --data-path <BreaDM root> \\
-        [--model stflstm] [--amp true] [--batch-size 16] [--epochs 100] \\
+        [--model stflstm|unet [--model-base-c 64]] [--amp true] \\
+        [--batch-size 16] [--epochs 100] \\
         [--use-subtraction --use-pk-maps [--generate-pk-maps]] \\
-        [--device cuda|cpu] [--resume latest] ...
+        [--device cuda|cpu] [--resume latest [--test-only]] ...
 
 Optional PK map fitting (--generate-pk-maps, pk/maps.py) -> dataset
 index -> model, AdamW and the warmup-poly schedule -> optional
 resume -> epochs of (train, evaluate, results file, latest/best
-checkpoints, early stop) -> a test-set pass with the best weights that
-prints its metrics. One device; CUDA unless --device cpu. The comparison
-renders of the JAX package's test pass wait for the viz port (ROADMAP.md).
+checkpoints, early stop; none with --test-only) -> a test-set pass with
+the best weights that prints its metrics and writes one
+original / ground truth / prediction render per test slice to
+<output_dir>/test_results<_pk>. One device; CUDA unless --device cpu.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import os
 import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from stf_unet_tpu_torch.core import config as config_lib
@@ -31,6 +34,7 @@ from stf_unet_tpu_torch.cli.common import set_precision_policy
 from stf_unet_tpu_torch.data.index import DatasetIndex
 from stf_unet_tpu_torch.data.loader import HostLoader
 from stf_unet_tpu_torch.data.transforms import TrainAugment
+from stf_unet_tpu_torch.metrics.binary import compute_metrics
 from stf_unet_tpu_torch.models.registry import create_model
 from stf_unet_tpu_torch.train.checkpoint import CheckpointManager
 from stf_unet_tpu_torch.train.early_stop import EarlyStopping
@@ -38,6 +42,7 @@ from stf_unet_tpu_torch.train.loop import (eval_batches_from_index,
                                            evaluate, train_one_epoch)
 from stf_unet_tpu_torch.train.schedule import warmup_poly_schedule
 from stf_unet_tpu_torch.train.state import TrainState, make_optimizer
+from stf_unet_tpu_torch.viz.comparison import save_comparison
 
 
 def _print_metrics(metrics: dict) -> None:
@@ -95,7 +100,7 @@ def main(cfg: TrainConfig) -> dict:
                                use_pk_maps=cfg.data.use_pk_maps)
     val_index = DatasetIndex(cfg.data.data_path, "val", seq_types,
                              use_pk_maps=cfg.data.use_pk_maps)
-    if len(train_index) == 0:
+    if len(train_index) == 0 and not cfg.test_only:
         raise SystemExit("error: the training index is empty after "
                          "warn-and-skip; check the warnings above (dataset "
                          "layout / --use-pk-maps without generated pk_maps)")
@@ -140,7 +145,8 @@ def main(cfg: TrainConfig) -> dict:
     cfg_json = config_lib.config_to_json(cfg)
     epochs_run = []
     start_time = time.time()
-    for epoch in range(start_epoch, cfg.epochs):
+    for epoch in range(start_epoch,
+                       start_epoch if cfg.test_only else cfg.epochs):
         mean_loss, lr, _ = train_one_epoch(
             state, loader, augment, cfg.seed, epoch, schedule, num_classes,
             device, print_freq=cfg.print_freq, loss_weight=loss_weight)
@@ -194,19 +200,33 @@ def main(cfg: TrainConfig) -> dict:
         state.model.load_state_dict(ckpt.load(best_kind)["model"])
     test_index = DatasetIndex(cfg.data.data_path, "test", seq_types,
                               use_pk_maps=cfg.data.use_pk_maps)
+    test_save_dir = os.path.join(cfg.output_dir, f"test_results{tag_suffix}")
+    print("Running inference on test set...")
     test_metrics = evaluate(
         state.model,
         eval_batches_from_index(test_index, cfg.data,
                                 use_pk_maps=cfg.data.use_pk_maps,
                                 batch_size=cfg.eval_batch_size),
-        num_classes, data_cfg=cfg.data, device=device)
+        num_classes, data_cfg=cfg.data, device=device, collect_outputs=True)
+    idx = 0
+    for logits, (image, target) in zip(test_metrics.pop("outputs"),
+                                       test_metrics.pop("batches")):
+        for j in range(logits.shape[0]):
+            # argmax prediction (foreground = class 1), ignore label as 0
+            pred = np.argmax(logits[j], axis=-1).astype(np.float32)
+            tgt = np.where(target[j] == 255, 0, target[j]).astype(np.float32)
+            dice_val, iou_val = compute_metrics(pred, tgt)
+            save_comparison(pred, tgt, image[j, 0, :, :, 0], test_save_dir,
+                            base_name=cfg.model.model, idx=idx,
+                            dice_score=dice_val, iou_score=iou_val)
+            idx += 1
     print("Test Set Metrics:")
     print(test_metrics["confusion_str"])
     print(f"Dice: {test_metrics['dice']:.4f}")
     print(f"mIoU: {test_metrics['mean_metrics']['miou']:.4f}")
     return {"best_dice": best_dice, "epochs": epochs_run,
             "steps": state.step, "test": test_metrics,
-            "results_file": results_file}
+            "results_file": results_file, "test_renders": idx}
 
 
 def run(argv: Optional[Sequence[str]] = None) -> dict:

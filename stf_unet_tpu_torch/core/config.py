@@ -69,6 +69,7 @@ class ModelConfig:
     pk_channels: int = 3
     # {"auto", "scan", "fused", "last"}: see ops/lstm.pixel_lstm.
     lstm_backend: str = "auto"
+    base_c: int = 64  # vanilla UNet width (ref:src/unet.py:7)
 
     @property
     def total_classes(self) -> int:
@@ -113,6 +114,9 @@ class TrainConfig:
     # Per-class CE weights, comma-separated, one per TOTAL class.
     loss_class_weights: str = ""
     silent: bool = False
+    # Skip the epochs (after any --resume) and run only the best model's
+    # test-set pass.
+    test_only: bool = False
     # Fit the PK maps of every split (pk/maps.py) before training.
     generate_pk_maps: bool = False
     early_stop_patience: int = 20  # ref:train.py:171
@@ -187,7 +191,6 @@ UNPORTED_FLAGS = {
     "--multihost": "data parallelism",
     "--data-parallel": "data parallelism",
     "--spatial-parallel": "data parallelism",
-    "--test-only": "cli/test.py",
     "--profile-dir": "long tail",
     "--nan-check": "long tail",
     "--jsonl-metrics": "long tail",
@@ -196,7 +199,6 @@ UNPORTED_FLAGS = {
     "--aux": "long tail",
     "--compile-cache-dir": "long tail",
     "--model-remat": "long tail",
-    "--model-base-c": "vanilla UNet",
 }
 
 

@@ -1,8 +1,9 @@
 """Shared conv building blocks (counterpart of stf_unet_tpu/models/blocks.py).
 
 NCHW activations. Module and attribute names follow the reference PyTorch
-layout (conv_block.{0,1,3,4}, shortcut.{0,1}, up / fusion / res_conv), so
-a reference state_dict loads with strict=True.
+layout (conv_block.{0,1,3,4}, shortcut.{0,1}, up / fusion / res_conv; the
+UNet's DoubleConv at .0/.1/.3/.4), so a reference state_dict loads with
+strict=True.
 """
 
 from __future__ import annotations
@@ -23,6 +24,21 @@ def TorchBatchNorm(features: int) -> nn.BatchNorm2d:
     """BatchNorm2d with torch default hyperparameters. Its parameters stay
     float32; a bfloat16 input is normalized and returned in bfloat16."""
     return nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+class DoubleConv(nn.Sequential):
+    """2x(Conv3x3 with bias -> BN -> ReLU): the UNet conv_block
+    (ref:src/unet.py:10-18), convs at .0 / .3 and BNs at .1 / .4."""
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__(
+            Conv2d(in_channels, features, 3, padding=1),
+            TorchBatchNorm(features),
+            nn.ReLU(inplace=True),
+            Conv2d(features, features, 3, padding=1),
+            TorchBatchNorm(features),
+            nn.ReLU(inplace=True),
+        )
 
 
 class ResidualConvBlock(nn.Module):

@@ -22,6 +22,13 @@ import torch
 from stf_unet_tpu_torch.train.state import TrainState
 
 
+def checkpoint_file(save_dir: str, model_name: str, kind: str,
+                    tag_suffix: str = "") -> str:
+    """`<save_dir>/<model>_<kind>_model<suffix>.pth`."""
+    return os.path.join(save_dir, f"{model_name.lower()}_{kind}_model"
+                                  f"{tag_suffix}.pth")
+
+
 class CheckpointManager:
     def __init__(self, save_dir: str, model_name: str, tag_suffix: str = ""):
         self.save_dir = os.path.abspath(save_dir)
@@ -34,8 +41,8 @@ class CheckpointManager:
         returned as it is."""
         if os.path.isfile(kind):
             return kind
-        return os.path.join(self.save_dir, f"{self.model_name}_{kind}_model"
-                                           f"{self.tag_suffix}.pth")
+        return checkpoint_file(self.save_dir, self.model_name, kind,
+                               self.tag_suffix)
 
     def exists(self, kind: str) -> bool:
         return os.path.isfile(self.path(kind))

@@ -102,27 +102,36 @@ def train_one_epoch(state: TrainState, loader: HostLoader,
 
 @torch.inference_mode()
 def evaluate(model, eval_batches: Iterable, num_classes: int, *,
-             data_cfg, device: torch.device,
-             print_freq: int = 100) -> Dict[str, Any]:
+             data_cfg, device: torch.device, print_freq: int = 100,
+             collect_outputs: bool = False) -> Dict[str, Any]:
     """Validation/test pass (ref:train_and_eval.py:316-374) over
     (image [B, T, h, w, 1] uint8, target [B, h, w] uint8) batches, which
     are normalized on the device. Returns {dice, confusion_matrix,
-    confusion_str, global_accuracy, class_metrics, mean_metrics}."""
+    confusion_str, global_accuracy, class_metrics, mean_metrics}; with
+    collect_outputs also "outputs" (host float32 logits [B, h, w, C] per
+    batch) and "batches" (the consumed host (image, target) pairs, raw
+    uint8: both viz helpers min-max normalize the image), for callers
+    that render or aggregate per sample."""
     model.eval()
     conf = confusion_init(num_classes, device)
     dice_cum = torch.zeros((num_classes,), dtype=torch.float32,
                            device=device)
     count = 0
+    outputs, batches = [], []
     logger = MetricLogger(delimiter="  ")
-    for image, target in logger.log_every(eval_batches, print_freq, "Test:"):
-        image = torch.from_numpy(image).to(device, non_blocking=True)
-        target = torch.from_numpy(target).to(device, non_blocking=True)
+    for host_image, host_target in logger.log_every(eval_batches,
+                                                    print_freq, "Test:"):
+        image = torch.from_numpy(host_image).to(device, non_blocking=True)
+        target = torch.from_numpy(host_target).to(device, non_blocking=True)
         x = normalize(image, data_cfg.mean, data_cfg.std)
         logits = model(preprocess_input(x, model))["out"]
         target = target.long()
         conf = confusion_update(conf, target, torch.argmax(logits, dim=-1))
         dice_cum, count = eval_dice_update(dice_cum, count, logits, target,
                                            ignore_index=255)
+        if collect_outputs:
+            outputs.append(logits.cpu().numpy())
+            batches.append((host_image, host_target))
     mat = conf.cpu().numpy()
     report = confusion_report(mat)
     return {
@@ -132,6 +141,8 @@ def evaluate(model, eval_batches: Iterable, num_classes: int, *,
         "global_accuracy": report["global_accuracy"],
         "class_metrics": report["class_metrics"],
         "mean_metrics": report["mean_metrics"],
+        **({"outputs": outputs, "batches": batches} if collect_outputs
+           else {}),
     }
 
 

@@ -1,6 +1,6 @@
-"""Carry STF-LSTM-UNet weights from the JAX package's Flax trees into the
-reference PyTorch state_dict layout that this package's model loads
-(strict=True). The port's own copy of the conversions in
+"""Carry STF-LSTM-UNet and vanilla UNet weights from the JAX package's
+Flax trees into the reference PyTorch state_dict layout that this
+package's models load (strict=True). The port's own copy of the conversions in
 stf_unet_tpu/utils/torch_export.py:
 
   * Conv kernel HWIO [kh,kw,in,out] -> torch [out,in,kh,kw]
@@ -94,6 +94,34 @@ def _decoder_block(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
     _residual_block(sd, f"{prefix}.res_conv", p["res_conv"], s["res_conv"])
 
 
+def _torch(sd: Dict) -> Dict[str, torch.Tensor]:
+    # np.array copies: arrays handed over from JAX are read-only views,
+    # which torch.as_tensor would alias with a warning.
+    return {k: torch.as_tensor(np.array(v)) for k, v in sd.items()}
+
+
+_UNET_DOUBLE_CONVS = ("enc1", "enc2", "enc3", "enc4", "bottleneck",
+                      "dec4", "dec3", "dec2", "dec1")
+
+
+def unet_state_dict_from_jax(params: Mapping, batch_stats: Mapping
+                             ) -> Dict[str, torch.Tensor]:
+    """UNet (params, batch_stats) trees -> reference-layout torch
+    state_dict (ref:src/unet.py: DoubleConv convs at .0 / .3, BNs at
+    .1 / .4, ConvTranspose up*, 1x1 out_conv)."""
+    sd: Dict = {}
+    for name in _UNET_DOUBLE_CONVS:
+        for i, (conv_idx, bn_idx) in enumerate(((0, 1), (3, 4))):
+            p = params[name][f"conv{i + 1}"]
+            s = batch_stats[name][f"conv{i + 1}"]
+            _conv(sd, f"{name}.{conv_idx}", p["conv"])
+            _bn(sd, f"{name}.{bn_idx}", p["norm"]["bn"], s["norm"]["bn"])
+    for name in ("up4", "up3", "up2", "up1"):
+        _convt(sd, name, params[name])
+    _conv(sd, "out_conv", params["out_conv"])
+    return _torch(sd)
+
+
 def stflstm_state_dict_from_jax(params: Mapping, batch_stats: Mapping
                                 ) -> Dict[str, torch.Tensor]:
     """STFLSTMUNet (params, batch_stats) trees -> reference-layout torch
@@ -119,6 +147,4 @@ def stflstm_state_dict_from_jax(params: Mapping, batch_stats: Mapping
     _residual_block(sd, "final_res", params["final_res"],
                     batch_stats["final_res"])
     _conv(sd, "final", params["final"])
-    # np.array copies: arrays handed over from JAX are read-only views,
-    # which torch.as_tensor would alias with a warning.
-    return {k: torch.as_tensor(np.array(v)) for k, v in sd.items()}
+    return _torch(sd)

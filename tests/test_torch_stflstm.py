@@ -181,8 +181,9 @@ def test_entry_points_refuse_missing_cuda(port_model):
 
 
 def test_unported_variants_raise():
+    from stf_unet_tpu_torch.data.transforms import TrainAugment
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model(ModelConfig(model="unet"))
+        TrainAugment(DataConfig(shared_frame_augmentation=False))
 
 
 def _imported_roots(path):
@@ -204,6 +205,12 @@ TRAINING_MODULES = (
     "train/checkpoint.py", "train/early_stop.py", "train/loop.py",
     "train/schedule.py", "train/state.py",
 )
+# Modules of the UNet and cli/test slice.
+TEST_MODULES = (
+    "cli/test.py", "models/unet.py", "metrics/binary.py",
+    "metrics/patient.py", "metrics/surface.py", "ops/tta.py",
+    "serve/tiled.py", "viz/comparison.py", "viz/overlay.py",
+)
 # Modules of the PK slice.
 PK_MODULES = (
     "pk/__init__.py", "pk/aif.py", "pk/fit.py", "pk/maps.py", "pk/tofts.py",
@@ -213,7 +220,7 @@ PK_MODULES = (
 
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "stf_unet_tpu_torch").rglob("*.py"))
-    for rel in TRAINING_MODULES + PK_MODULES:
+    for rel in TRAINING_MODULES + TEST_MODULES + PK_MODULES:
         assert REPO / "stf_unet_tpu_torch" / rel in files, rel
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 40
