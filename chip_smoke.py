@@ -18,7 +18,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      PK maps too (Cs=12), on uniformly scattered coordinates and at a
      200^2 output with small valid regions, each line with its blocks by
      path (the training draws must all stage their source box in shared
-     memory, the scattered case must take the direct gather);
+     memory, the scattered case must take the direct gather), and at the
+     augmentation extras' call shapes, bit-equal to the plain version:
+     an elastic field (Cs=9, alpha 8) and the per-frame mode (128
+     one-plane warps beside their masks), each with its blocks by path,
+     byte bound and device time;
      K4 (the PK fit's quadrature sums) at N = 16384, 8951 and 256 voxels,
      T=8, Q=700, with its bound and SFU floor over the active (t, q)
      terms and over the full grid, and at Q=3500 with rates of inf, NaN
@@ -84,6 +88,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
      cli/serve.build_server, answering requests of 11 planes (8 frames
      and the three maps); then phase 7's fixed-batch steps on the
      PK-maps model.
+ 15. train_extras: the tree packed by cli.pack; cli/train (bf16, batch
+     16, crop 224) from the packs with the elastic field, photometric
+     jitter, EMA and --grad-accum 2, stopped by --stop-after-steps inside
+     epoch 1 and an accumulation window, then --resume latest: the
+     resume point, finite losses, and cli/test's restore giving the EMA
+     weights; a second run with --data-cache-ram in the per-frame mode
+     (2 epochs): the decoder it used and the `data:` seconds per
+     iteration of both runs; host ms per batch of PIL, native decode,
+     pack and RAM cache; --batch-size auto on the full-width config (per
+     sample and fixed bytes, the pick) and one step at the pick, its
+     peak memory against the budget. K1, K1b, K2 and K3 must launch.
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -492,6 +507,8 @@ WARP_TOL = 1e-5
 # window over this many back-to-back calls (a 20-call CUDA-event window
 # at ~13 us of bytes bound times the host's enqueue rate, not the kernel).
 WARP_PROFILED_CALLS = 1000
+# The elastic field of the K2 extras line and of the train_extras phase.
+WARP_ELASTIC = {"elastic_alpha": 8.0, "elastic_grid": 4, "elastic_prob": 1.0}
 
 
 def lstm_bwd_inputs(gen, c, n, dtype, device):
@@ -724,10 +741,11 @@ def lstm_bwd_bytes(args) -> float:
             + 4 * (8 * c * c + 4 * c))
 
 
-def warp_inputs(device, pk_maps: bool):
+def warp_inputs(device, pk_maps: bool, cfg=None):
     """A training batch's warp inputs: random uint8 frames (and, with
     pk_maps, three PK maps) and a binary mask on a 256^2 canvas (some
-    samples padded), and the source grids TrainAugment draws for them."""
+    samples padded), and the source grids TrainAugment draws for them
+    (under `cfg`, default DataConfig())."""
     import torch
 
     from stf_unet_tpu_torch.core.config import DataConfig
@@ -735,7 +753,7 @@ def warp_inputs(device, pk_maps: bool):
     from stf_unet_tpu_torch.data.transforms import TrainAugment
 
     gen = torch.Generator().manual_seed(2)
-    aug = TrainAugment(DataConfig())
+    aug = TrainAugment(cfg or DataConfig())
     planes = T_STEPS + (3 if pk_maps else 0)
     frames = torch.randint(0, 256, (WARP_B, planes, WARP_SRC, WARP_SRC),
                            generator=gen, dtype=torch.uint8)
@@ -749,11 +767,12 @@ def warp_inputs(device, pk_maps: bool):
     return aug, stacked, gy, gx, valid
 
 
-def warp_case(label: str, args, path: str) -> dict:
+def warp_case(label: str, args, path, exact: bool = False) -> dict:
     """K2 once on `args` with its path counters, against warp_plain: the
-    nearest values equal, bilinear within WARP_TOL, all finite, and every
-    block on `path` ("staged" or "direct"), as the box rule's emulation
-    (warp_boxes) has it. Returns the case's line."""
+    nearest values equal, bilinear within WARP_TOL (bit-equal when
+    `exact`), all finite, and the blocks by path as the box rule's
+    emulation (warp_boxes) has them, every one on `path` ("staged" or
+    "direct") unless path is None. Returns the case's line."""
     import torch
 
     from stf_unet_tpu_torch.ops.kernels.warp import (warp, warp_boxes,
@@ -774,9 +793,10 @@ def warp_case(label: str, args, path: str) -> dict:
           f"warp {label}: non-finite output")
     check(near_diff == 0, f"warp {label}: {near_diff} nearest (label) "
                           f"values differ from the plain version")
-    check(err <= WARP_TOL, f"warp {label}: bilinear max abs err {err} > "
-                           f"{WARP_TOL}")
-    check(blocks == want and blocks[path] == staged.numel(),
+    tol = 0.0 if exact else WARP_TOL
+    check(err <= tol, f"warp {label}: bilinear max abs err {err} > {tol}")
+    check(blocks == want and (path is None
+                              or blocks[path] == staged.numel()),
           f"warp {label}: blocks by path {blocks}, the box rule's {want}; "
           f"expected all {path}")
     return {"kernel": "warp", "case": label, "B": stacked.shape[0],
@@ -816,6 +836,85 @@ def warp_edge_cases(device) -> None:
         flush=True)
 
 
+def warp_bound(args):
+    """K2's byte bound for one call: the source, coordinates and valid
+    sizes read once, the bilinear planes and the nearest plane written
+    once."""
+    stacked, gy, gx, valid = args[:4]
+    bil_n = stacked.shape[0] * (stacked.shape[1] - 1) * gy[0].numel()
+    nbytes = (stacked.numel() + 4 * (gy.numel() + gx.numel()
+                                     + valid.numel())
+              + 4 * (bil_n + gy.numel()))
+    return bound_ms(nbytes, 0.0, "f32")
+
+
+def warp_extras_cases(device, quick: bool, jobs: list) -> list:
+    """K2 at the call shapes the augmentation extras give it: the elastic
+    field's non-affine coordinates (B=16, Cs=9, alpha 8, grid 4, prob 1)
+    and the per-frame mode's one grid per plane ([B*T, 2, H, W] stacks of
+    a frame beside its sample's mask, B=16, T=8), each bit-equal to
+    warp_plain, with its blocks by path (whatever the box rule says), its
+    event time, byte bound and, queued on `jobs`, its device time per call
+    over WARP_PROFILED_CALLS calls. Returns the lines for the kernels
+    line's warp entry."""
+    import torch
+
+    from stf_unet_tpu_torch.core.config import DataConfig
+    from stf_unet_tpu_torch.core.prng import augment_generator
+    from stf_unet_tpu_torch.data.transforms import TrainAugment
+    from stf_unet_tpu_torch.ops.kernels.warp import warp, warp_plain
+
+    aug, stacked, gy, gx, valid = warp_inputs(device, False,
+                                              DataConfig(**WARP_ELASTIC))
+    cases = [("elastic Cs=9", (stacked, gy, gx, valid, aug.alpha,
+                               aug.beta))]
+    aug = TrainAugment(DataConfig(shared_frame_augmentation=False))
+    sizes = valid.to("cpu", torch.int32)
+    gy, gx = aug.grids(augment_generator(0, 0, 0), sizes, device,
+                       planes=T_STEPS)
+    frames, mask = stacked[:, :T_STEPS], stacked[:, T_STEPS:]
+    per_frame = torch.stack([frames, mask.expand(-1, T_STEPS, -1, -1)],
+                            2).reshape(WARP_B * T_STEPS, 2, WARP_SRC,
+                                       WARP_SRC)
+    cases.append((f"per-frame B={WARP_B} T={T_STEPS}", (
+        per_frame, gy, gx, valid.repeat_interleave(T_STEPS, 0), aug.alpha,
+        aug.beta)))
+    out = []
+    for label, args in cases:
+        line = warp_case(label, args, None, exact=True)
+        bms, by = warp_bound(args)
+        line.update(bound_ms=bms, bound_by=by)
+        entry = {"case": label, "max_abs_err": line["max_abs_err"],
+                 "blocks": line["blocks"], "bound_ms": bms, "bound_by": by,
+                 "B": line["B"], "Cs": line["Cs"]}
+        if not quick:
+            line.update(kernel_ms=cuda_ms(lambda: warp(*args)),
+                        plain_ms=cuda_ms(lambda: warp_plain(*args),
+                                         iters=5))
+            entry.update(ms=line["kernel_ms"], plain_ms=line["plain_ms"])
+            jobs.append(warp_extras_job(label, args, entry))
+        print(json.dumps(line), flush=True)
+        out.append(entry)
+    return out
+
+
+def warp_extras_job(label: str, args, entry: dict):
+    """A profiled_pass job: K2's device time per call on an extras case,
+    printed beside its bound and blocks."""
+    from stf_unet_tpu_torch.ops.kernels.warp import warp
+
+    def job():
+        dev = profiled_ms(lambda: warp(*args), WARP_PROFILED_CALLS,
+                          "stf::warp_kernel")
+        entry["device_ms"] = dev
+        print(json.dumps({"kernel": "warp", "case": label,
+                          "device_ms": dev, "bound_ms": entry["bound_ms"],
+                          "blocks": entry["blocks"],
+                          "profiled_calls": WARP_PROFILED_CALLS}),
+              flush=True)
+    return job
+
+
 def warp_phase(device, quick: bool, jobs: list):
     """K2 against its plain version at the training shape, without PK maps
     (Cs=9) and with them (Cs=12), each line with its blocks by path (the
@@ -842,11 +941,7 @@ def warp_phase(device, quick: bool, jobs: list):
                              "W": WARP_SRC, "Ho": gy.shape[1],
                              "Wo": gy.shape[2]}]}
         if not quick:
-            bil_n = WARP_B * (cs - 1) * gy.shape[1] * gy.shape[2]
-            nbytes = (stacked.numel() + 4 * (gy.numel() + gx.numel()
-                                             + valid.numel())
-                      + 4 * (bil_n + gy.numel()))
-            bms, by = bound_ms(nbytes, 0.0, "f32")
+            bms, by = warp_bound(args)
             library = grid_sample_fn(stacked, gy, gx)
             entry.update(ms=cuda_ms(lambda: warp(*args)),
                          plain_ms=cuda_ms(lambda: warp_plain(*args),
@@ -864,9 +959,13 @@ def warp_phase(device, quick: bool, jobs: list):
         print(json.dumps(line), flush=True)
         entries.append(entry)
     warp_edge_cases(device)
+    extras = warp_extras_cases(device, quick, jobs)
     entry, pk_entry = entries
     entry["max_abs_err"] = max(entry["max_abs_err"], pk_entry["max_abs_err"])
     entry["pk_shape"] = pk_entry
+    entry["extras"] = extras
+    entry["max_abs_err"] = max([entry["max_abs_err"]]
+                               + [e["max_abs_err"] for e in extras])
     return entry
 
 
@@ -1991,6 +2090,245 @@ def pk_serving_phase(weights: str):
     return launches
 
 
+# The train_extras phase: STF-LSTM-UNet at full width through the
+# training leftovers (dataset packs, the augmentation extras, EMA, --grad-
+# accum 2), stopped by --stop-after-steps and resumed; EXTRAS_STOP steps
+# of 4 per epoch stop inside epoch 1, mid-window.
+EXTRAS_FLAGS = ["--data-elastic-alpha", "8", "--data-elastic-prob", "1",
+                "--data-brightness", "0.1", "--data-contrast", "0.1",
+                "--data-gamma-jitter", "0.1", "--data-noise-std", "0.01",
+                "--optim-ema-decay", "0.99", "--grad-accum", "2"]
+EXTRAS_EPOCHS, EXTRAS_STOP = 2, 5
+
+
+class Tee:
+    """stdout that is also kept, to read cli/train's log lines."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.out.write(text)
+        self.lines.append(text)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.lines)
+
+
+def logged_run(argv):
+    """cli/train.run(argv) with its printed lines kept: (result, text)."""
+    import contextlib
+
+    from stf_unet_tpu_torch.cli import train as train_cli
+
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = train_cli.run(argv)
+    return result, tee.text()
+
+
+def data_seconds(text: str) -> dict:
+    """epoch -> the `data:` seconds per iteration of its last Epoch log
+    line (the epoch's mean host wait for a batch)."""
+    import re
+
+    out = {}
+    for m in re.finditer(r"Epoch: \[(\d+)\].*?data: ([0-9.]+)", text):
+        out[int(m.group(1))] = float(m.group(2))
+    return out
+
+
+def loader_sources_ms(data: str, pack_root: str) -> dict:
+    """Host ms per B=16 training batch of each source of the 64-slice
+    tree, one epoch each, no prefetch: PIL decode, native decode ("not
+    available" where the decoder does not build), the dataset pack, and
+    the RAM cache's second epoch."""
+    from stf_unet_tpu_torch.data import native_loader
+    from stf_unet_tpu_torch.data.index import DatasetIndex
+    from stf_unet_tpu_torch.data.loader import HostLoader
+    from stf_unet_tpu_torch.data.pack import open_split_pack
+
+    seq = tuple(f"SUB{i}" for i in range(1, 9))
+    index = DatasetIndex(data, "train", seq)
+    kw = dict(shuffle=True, seed=0, prefetch=0, verbose=False)
+    loaders = {"pil": HostLoader(index, TRAIN_BATCH, use_native=False, **kw),
+               "pack": HostLoader(index, TRAIN_BATCH,
+                                  pack=open_split_pack(pack_root, "train"),
+                                  **kw),
+               "ram_cache": HostLoader(index, TRAIN_BATCH, cache_ram=True,
+                                       **kw)}
+    if native_loader.native_available():
+        loaders["native"] = HostLoader(index, TRAIN_BATCH, use_native=True,
+                                       **kw)
+    for _ in loaders["ram_cache"].epoch(0):  # fills the cache
+        pass
+    out = {"native": "not available"}
+    for name, loader in loaders.items():
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader.epoch(1))
+        out[name] = (time.perf_counter() - t0) * 1e3 / n
+    return out
+
+
+def train_extras_phase(tmpdir: str, data: str, device: str = "cuda"):
+    """The training leftovers at full width, bf16, B=16, crop 224, on the
+    synthetic tree: cli.pack packs train / val / test; cli/train with the
+    packs, the augmentation extras, EMA and --grad-accum 2 stops after
+    EXTRAS_STOP steps and --resume latest finishes it (the resume point,
+    finite losses, and the EMA weights are what cli/test's restore gives);
+    a second run with --data-cache-ram and the per-frame mode, 2 epochs
+    (its decoder and data seconds beside the first run's); the host ms
+    per batch of each loader source; pick_batch_size on the full-width
+    config and one real step at its pick, peak memory against the budget.
+    Returns the launch counts of the phase."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from stf_unet_tpu_torch.cli import pack as pack_cli
+    from stf_unet_tpu_torch.cli.common import restore_for_inference
+    from stf_unet_tpu_torch.core.config import parse_config
+    from stf_unet_tpu_torch.data.loader import Batch
+    from stf_unet_tpu_torch.data.transforms import TrainAugment
+    from stf_unet_tpu_torch.models.registry import create_model
+    from stf_unet_tpu_torch.train import autobatch
+    from stf_unet_tpu_torch.train.loop import train_step
+    from stf_unet_tpu_torch.train.state import TrainState, make_optimizer
+
+    kernels = reset_counts()
+    t_phase = time.perf_counter()
+    pack_root = os.path.join(tmpdir, "pack")
+    t0 = time.perf_counter()
+    pack_cli.main(["--data-path", data, "--output", pack_root,
+                   "--use-subtraction"])
+    pack_s = time.perf_counter() - t0
+    weights = os.path.join(tmpdir, "weights_extras")
+    base = ["--data-path", data, "--model", "stflstm", "--amp", "true",
+            "--use-subtraction", "--batch-size", str(TRAIN_BATCH),
+            "--epochs", str(EXTRAS_EPOCHS), "--eval-batch-size",
+            str(TRAIN_BATCH), "--seed", "0", "--data-base-size",
+            str(TRAIN_SRC), "--data-crop-size", str(TRAIN_CROP),
+            "--output-dir", os.path.join(tmpdir, "out_extras"),
+            "--print-freq", "1", "--device", device]
+    first = base + ["--save-dir", weights, "--data-pack", pack_root,
+                    *EXTRAS_FLAGS]
+    t0 = time.perf_counter()
+    stopped, log1 = logged_run(first + ["--stop-after-steps",
+                                        str(EXTRAS_STOP)])
+    cut = torch.load(os.path.join(weights, "stflstm_latest_model.pth"),
+                     map_location="cpu", weights_only=True)
+    steps_per_epoch = TRAIN_PATIENTS * TRAIN_SLICES // TRAIN_BATCH
+    want = divmod(EXTRAS_STOP, steps_per_epoch)
+    check(stopped.get("preempted") is True, "--stop-after-steps did not stop")
+    check((cut["epoch"], cut.get("step_in_epoch")) == want,
+          f"stopped at (epoch, step_in_epoch) = ({cut['epoch']}, "
+          f"{cut.get('step_in_epoch')}), expected {want}")
+    check("accum_grads" in cut and "ema" in cut,
+          "the mid-window save lacks its accumulated gradients or EMA")
+    resumed, log2 = logged_run(first + ["--resume", "latest"])
+    run1_s = time.perf_counter() - t0
+    losses = ([e["train_loss"] for e in stopped["epochs"]]
+              + [e["train_loss"] for e in resumed["epochs"]])
+    check(resumed["epochs"][0]["epoch"] == want[0]
+          and f"at epoch {want[0]} step {want[1]}" in log2,
+          f"resume did not re-enter epoch {want[0]} at step {want[1]}")
+    check(resumed["steps"] == EXTRAS_EPOCHS * steps_per_epoch,
+          f"resumed run ended at micro-step {resumed['steps']}")
+    check(all(math.isfinite(v) for v in losses),
+          f"non-finite training loss: {losses}")
+    best = os.path.join(weights, "stflstm_best_model.pth")
+    ckpt = torch.load(best, map_location="cpu", weights_only=True)
+    model, _, _, _ = restore_for_inference("stflstm", best, dtype="f32",
+                                           use_subtraction=True,
+                                           device=device)
+    restored = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    check(set(restored) == set(ckpt["ema"]) and all(
+        torch.equal(restored[n], ckpt["ema"][n]) for n in restored),
+        "cli/test's restore did not give the checkpoint's EMA weights")
+    check(not all(torch.equal(ckpt["ema"][n], ckpt["model"][n])
+                  for n in restored), "the EMA weights equal the live ones")
+    del model
+
+    t0 = time.perf_counter()
+    second, log3 = logged_run(base + [
+        "--save-dir", os.path.join(tmpdir, "weights_extras2"),
+        "--data-cache-ram", "--data-shared-frame-augmentation", "false"])
+    run2_s = time.perf_counter() - t0
+    decoder = [ln for ln in log3.splitlines()
+               if ln.startswith("host decoder:")]
+    check(len(second["epochs"]) == EXTRAS_EPOCHS and all(
+        math.isfinite(e["train_loss"]) for e in second["epochs"]),
+        f"cache / per-frame run: {second['epochs']}")
+    sources = loader_sources_ms(data, pack_root)
+
+    # autobatch on the full-width config, then one real step at its pick
+    cfg = parse_config(base + ["--batch-size", "auto"])
+    canvas = (TRAIN_SRC, TRAIN_SRC)
+    budget = autobatch.device_budget_bytes()
+    step_b0, state_bytes = autobatch.measure_step_memory(cfg, T_STEPS, 2,
+                                                         canvas)
+    step_b1, _ = autobatch.measure_step_memory(cfg, T_STEPS, 4, canvas)
+    pick = autobatch.pick_batch_size(cfg, T_STEPS, budget_bytes=budget,
+                                     canvas=canvas)
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)  # the run's, before the step's
+    torch.manual_seed(0)
+    model = create_model(cfg.model, dtype=torch.bfloat16).to(dev)
+    state = TrainState(model, make_optimizer(cfg.optim, model, dev))
+    rng = np.random.default_rng(0)
+    host = Batch(frames=rng.integers(0, 256, (pick, T_STEPS) + canvas,
+                                     dtype=np.uint8),
+                 masks=rng.integers(0, 2, (pick,) + canvas, dtype=np.uint8),
+                 sizes=np.full((pick, 2), TRAIN_SRC, np.int32))
+    t0 = time.perf_counter()
+    loss, _ = train_step(state, TrainAugment(cfg.data), host,
+                         torch.Generator().manual_seed(0),
+                         lambda s: cfg.optim.lr, 2, dev)
+    loss = loss.item()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    check(math.isfinite(loss), f"autobatch step at {pick}: loss {loss}")
+    check(peak <= budget, f"autobatch step at {pick}: peak {peak} B over "
+                          f"the budget {budget} B")
+    del state, model, host
+    torch.cuda.empty_cache()
+
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    for name in TRAIN_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched in "
+                                  f"train_extras")
+    per_sample = (step_b1 - step_b0) / 2
+    print(json.dumps({"train_extras": {
+        "phase_wall_s": time.perf_counter() - t_phase, "pack_s": pack_s,
+        "run1_wall_s": run1_s, "run2_wall_s": run2_s,
+        "resume_point": {"epoch": cut["epoch"],
+                         "step_in_epoch": cut["step_in_epoch"]},
+        "losses": losses, "best_dice": resumed["best_dice"],
+        "test_dice": resumed["test"]["dice"],
+        "second_run": {"epochs": second["epochs"],
+                       "test_dice": second["test"]["dice"]},
+        "decoder": decoder,
+        "data_s_per_iter": {"pack_stopped": data_seconds(log1),
+                            "pack_resumed": data_seconds(log2),
+                            "cache_ram_per_frame": data_seconds(log3)},
+        "loader_ms_per_batch": sources,
+        "autobatch": {"per_sample_bytes": per_sample,
+                      "fixed_bytes": step_b0 - 2 * per_sample + state_bytes,
+                      "state_bytes": state_bytes, "budget_bytes": budget,
+                      "pick": pick, "step_peak_bytes": peak,
+                      "step_s": step_s, "loss": loss},
+        "launches": launches}}), flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2065,6 +2403,10 @@ def main() -> int:
         launches, best = pk_training_phase(tmpdir, data)
         pk_runs += [launches, pk_serving_phase(best)]
         step_phase(data, pk=True)
+        torch.cuda.empty_cache()
+        # the training leftovers: packs, extras, EMA, accumulation,
+        # preemption, the RAM cache, autobatch
+        extras_launches = train_extras_phase(tmpdir, data)
     pk_launches = {name: sum(run[name] for run in pk_runs)
                    for name in counters()}
 
@@ -2093,13 +2435,14 @@ def main() -> int:
                    "train": train_launches[k["name"]],
                    "unet_train": unet_launches[k["name"]],
                    "cli_test": cli_launches[k["name"]],
-                   "pk": pk_launches[k["name"]]}
+                   "pk": pk_launches[k["name"]],
+                   "train_extras": extras_launches[k["name"]]}
         k.update(launches=sum(by_path.values()), launches_by_path=by_path,
                  max_abs_err=a["max_abs_err"], ms=a["ms"],
                  plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
                  bound_by=a["bound_by"], library_ms=a["library_ms"],
                  shapes=a["shapes"], dtype=dtypes.get(k["name"], "bf16"))
-        for extra in ("pk_shape", "tensor_cores", "device_ms",
+        for extra in ("pk_shape", "extras", "tensor_cores", "device_ms",
                       "library_device_ms", "host_us", "rule2_leave_alone"):
             if extra in a:
                 k[extra] = a[extra]

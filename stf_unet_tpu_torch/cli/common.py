@@ -30,11 +30,17 @@ DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 def load_reference_checkpoint(path: str
                               ) -> Tuple[Dict[str, torch.Tensor], dict]:
     """(state_dict, metadata) from a reference .pth; a DataParallel
-    'module.' prefix is stripped."""
+    'module.' prefix is stripped. A cli/train checkpoint that carries EMA
+    weights gives them as the parameters (the BN statistics stay the live
+    model's), as the JAX package's inference restore does, and says so."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(raw, dict) and "model" in raw:
         sd, meta = raw["model"], {k: v for k, v in raw.items()
-                                  if k != "model"}
+                                  if k not in ("model", "ema",
+                                               "accum_grads")}
+        if "ema" in raw:
+            sd = {**sd, **raw["ema"]}
+            print("using EMA weights (checkpoint carries an EMA copy)")
     else:
         sd, meta = raw, {}
     sd = {(k[len("module."):] if k.startswith("module.") else k): v

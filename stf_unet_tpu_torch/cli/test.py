@@ -7,7 +7,7 @@ Usage: python -m stf_unet_tpu_torch.cli.test --model unet
        [--use-pk-maps] [--num-classes 2] [--base-c 64] [--crop-size 224]
        [--pred-mode argmax|sigmoid] [--tiled [--tile-overlap 0.5]]
        [--tta] [--per-patient] [--surface-metrics] [--threshold-sweep]
-       [--dtype f32|bf16] [--device cuda|cpu]
+       [--data-pack <pack root>] [--dtype f32|bf16] [--device cuda|cpu]
 
 Loads the best (else latest) checkpoint of `--model-dir`
 (`<model>_{best,latest}_model<_pk>.pth`, as cli/train writes them), runs
@@ -40,9 +40,8 @@ from stf_unet_tpu_torch.viz.overlay import save_overlay
 
 # Flags of the JAX CLI whose features the port has not implemented yet ->
 # the ROADMAP.md item (§1) that brings them, refused unless left at the
-# JAX CLI's default (one device, no pack).
-UNPORTED = {"--data-parallel": ("data parallelism", int, 1),
-            "--data-pack": ("dataset packs", str, "")}
+# JAX CLI's default (one device).
+UNPORTED = {"--data-parallel": ("data parallelism", int, 1)}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -86,6 +85,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="flip test-time augmentation: average logits over "
                         "{id, hflip, vflip, hvflip} (ops/tta.py; composes "
                         "with --tiled)")
+    p.add_argument("--data-pack", type=str, default="",
+                   help="dataset pack root (cli/pack): serve pre-decoded "
+                        "samples by memmap instead of decoding images")
     p.add_argument("--per-patient", action="store_true",
                    help="aggregate metrics per patient (mean/std/median "
                         "dice across patients). Requires --batch-size 1.")
@@ -140,6 +142,13 @@ def test(args: argparse.Namespace) -> dict:
     test_index = DatasetIndex(args.root, "test",
                               data_cfg.resolved_sequence_types,
                               use_pk_maps=use_pk)
+    pack = None
+    if args.data_pack:
+        from stf_unet_tpu_torch.data.pack import open_split_pack
+        pack = open_split_pack(args.data_pack, "test")
+        pack.validate(test_index, mask_format=data_cfg.mask_format,
+                      use_pk_maps=use_pk)
+        print(f"dataset pack [test]: {len(pack)} samples (decode-free)")
     if args.tta:
         from stf_unet_tpu_torch.ops.tta import FlipTTAModel
         model = FlipTTAModel(model).eval()
@@ -158,7 +167,7 @@ def test(args: argparse.Namespace) -> dict:
 
     if args.tiled:
         metrics = _test_tiled(args, model, data_cfg, num_classes,
-                              test_index, device)
+                              test_index, device, pack)
         metrics["seconds"] = {"restore": restore_s,
                               "test": time.perf_counter() - t0 - restore_s}
         return metrics
@@ -167,7 +176,8 @@ def test(args: argparse.Namespace) -> dict:
     metrics = evaluate(
         model, eval_batches_from_index(test_index, data_cfg,
                                        use_pk_maps=use_pk,
-                                       batch_size=args.batch_size),
+                                       batch_size=args.batch_size,
+                                       pack=pack),
         num_classes, data_cfg=data_cfg, device=device, collect_outputs=True)
 
     os.makedirs(args.output_dir, exist_ok=True)
@@ -257,11 +267,12 @@ def _per_patient_report(test_index: DatasetIndex, outputs, batches,
 
 def _test_tiled(args: argparse.Namespace, model, data_cfg,
                 num_classes: int, test_index: DatasetIndex,
-                device: torch.device) -> dict:
+                device: torch.device, pack=None) -> dict:
     """Native-resolution test pass: sliding-window tiles at the trained
     crop (serve/tiled.TiledPredictor), metrics against the
-    native-resolution masks with evaluate()'s confusion and dice."""
-    from stf_unet_tpu_torch.data.loader import load_sample_raw
+    native-resolution masks with evaluate()'s confusion and dice. The
+    samples come from the dataset `pack` when one is given."""
+    from stf_unet_tpu_torch.data.loader import load_sample_raw_native
     from stf_unet_tpu_torch.metrics.confusion import (confusion_init,
                                                       confusion_report,
                                                       confusion_update,
@@ -285,9 +296,13 @@ def _test_tiled(args: argparse.Namespace, model, data_cfg,
     print(f"Running tiled native-resolution inference on test set "
           f"(tile={predictor.tile}, stride={predictor.stride})...")
     for idx, rec in enumerate(test_index.records):
-        frames, mask, pk = load_sample_raw(
-            rec, use_pk_maps=data_cfg.use_pk_maps,
-            mask_format=data_cfg.mask_format)
+        if pack is not None:  # decode-free native-resolution frames
+            frames, mask, pk, _ = pack.sample(
+                idx, use_pk_maps=data_cfg.use_pk_maps)
+        else:
+            frames, mask, pk = load_sample_raw_native(
+                rec, use_pk_maps=data_cfg.use_pk_maps,
+                mask_format=data_cfg.mask_format)
         img = frames if pk is None else np.concatenate([frames, pk], axis=0)
         pred = predictor.predict(img[..., None])
         pred_t = torch.from_numpy(pred).to(device)[None].long()

@@ -43,9 +43,36 @@ class DataConfig:
     mask_format: str = "binary"
     # Host batches decoded ahead by the loader's thread.
     prefetch: int = 2
+    # Augmentations beyond the reference, all off by default (the
+    # reference's distribution exactly). Elastic deformation: a [grid,
+    # grid, 2] normal control field times alpha (source pixels), upsampled
+    # bilinearly to the crop and added to the warp coordinates of frames
+    # and mask alike; shared-frame mode only.
+    elastic_alpha: float = 0.0
+    elastic_grid: int = 4
+    elastic_prob: float = 0.5
+    # Photometric jitter of the [0, 1] frames (PK maps and mask untouched),
+    # one draw per sample shared by its T frames.
+    brightness: float = 0.0    # v * f, f ~ U(1-b, 1+b)
+    contrast: float = 0.0      # (v - mean) * f + mean, f ~ U(1-c, 1+c)
+    gamma_jitter: float = 0.0  # v ** f, f ~ U(1-g, 1+g)
+    noise_std: float = 0.0     # + N(0, std), drawn on the device
+    # Keep the decoded uint8 samples in host RAM after the first epoch.
+    cache_ram: bool = False
+    # Dataset pack root (data/pack.py, built by cli/pack): decode-free
+    # train / val / test batches read from memory maps. "" = decode.
+    pack_dir: str = ""
+    # Host batches pinned and copied to the device this many steps ahead
+    # on a side stream (train/loop.py); 0 copies inline.
+    device_prefetch: int = 2
     # One augmentation draw shared by a sample's T frames (the JAX
-    # package's documented fix of the reference's per-frame re-roll).
+    # package's documented fix of the reference's per-frame re-roll);
+    # False re-rolls every plane, the mask following frame 0.
     shared_frame_augmentation: bool = True
+    # The JAX package's TPU routing of unrotated samples into a separable
+    # program; K2 warps every sample in one launch, so here it is accepted
+    # and changes nothing.
+    rotation_split: bool = False
 
     @property
     def resolved_sequence_types(self) -> Sequence[str]:
@@ -90,6 +117,12 @@ class OptimConfig:
     warmup_epochs: int = 1
     warmup_factor: float = 1e-3
     poly_power: float = 0.9
+    # EMA of the parameters (0 = off), updated after each AdamW apply;
+    # validation, the test pass and inference restores use it. The BN
+    # running statistics stay the live model's.
+    ema_decay: float = 0.0
+    # d_eff = min(ema_decay, (1 + n) / (10 + n)) over the apply count n.
+    ema_warmup: bool = True
 
 
 @dataclass
@@ -99,7 +132,14 @@ class TrainConfig:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    # 0 (CLI spelling: --batch-size auto) picks the batch from a measured
+    # train step's memory (train/autobatch.py).
     batch_size: int = 16
+    # The device memory budget of --batch-size auto in GiB; 0 = what the
+    # card reports free.
+    auto_batch_budget_gb: float = 0.0
+    # Mean of k micro-batch gradients, one AdamW apply per k.
+    grad_accum: int = 1
     # The reference evaluates with batch 1; larger values group same-shape
     # samples, which gives the same metrics.
     eval_batch_size: int = 1
@@ -120,6 +160,9 @@ class TrainConfig:
     # Fit the PK maps of every split (pk/maps.py) before training.
     generate_pk_maps: bool = False
     early_stop_patience: int = 20  # ref:train.py:171
+    # Stop after N train steps with a step-exact resumable checkpoint
+    # (0 = off); SIGTERM and a first SIGINT take the same path.
+    stop_after_steps: int = 0
     save_dir: str = "./save_weights"
     output_dir: str = "./output"
     seed: int = 0
@@ -171,23 +214,6 @@ def resolve_device(device="cuda") -> torch.device:
 # Flags of the JAX package's trainer whose features the port has not
 # implemented yet -> the ROADMAP.md item (§1) that brings them.
 UNPORTED_FLAGS = {
-    "--grad-accum": "EMA and gradient accumulation",
-    "--optim-ema-decay": "EMA and gradient accumulation",
-    "--optim-ema-warmup": "EMA and gradient accumulation",
-    "--data-brightness": "augmentation extras",
-    "--data-contrast": "augmentation extras",
-    "--data-gamma-jitter": "augmentation extras",
-    "--data-noise-std": "augmentation extras",
-    "--data-elastic-alpha": "augmentation extras",
-    "--data-elastic-grid": "augmentation extras",
-    "--data-elastic-prob": "augmentation extras",
-    "--data-rotation-split": "augmentation extras",
-    "--data-pack": "dataset packs",
-    "--data-pack-dir": "dataset packs",
-    "--data-cache-ram": "native loader and RAM cache",
-    "--data-device-prefetch": "native loader and RAM cache",
-    "--auto-batch-budget-gb": "autobatch",
-    "--stop-after-steps": "preemption",
     "--multihost": "data parallelism",
     "--data-parallel": "data parallelism",
     "--spatial-parallel": "data parallelism",
@@ -207,10 +233,9 @@ def _parse_bool(s: str) -> bool:
 
 
 def _parse_batch_size(s: str) -> int:
+    """A positive batch, or 'auto' -> 0 (train/autobatch sizes it)."""
     if s.strip().lower() == "auto":
-        raise argparse.ArgumentTypeError(
-            "'auto' is not ported to the PyTorch package yet (ROADMAP.md "
-            "§1, 'autobatch')")
+        return 0
     v = int(s)
     if v < 1:
         raise argparse.ArgumentTypeError(f"must be positive, got {v}")
@@ -271,6 +296,7 @@ def parse_config(argv: Optional[Sequence[str]] = None,
         "--weight-decay": ("optim_weight_decay", float),
         "--use-pk-maps": ("data_use_pk_maps", _parse_bool),
         "--use-subtraction": ("data_use_subtraction", _parse_bool),
+        "--data-pack": ("data_pack_dir", str),
     }
     for flag, (dest, typ) in alias.items():
         if typ is _parse_bool:

@@ -8,14 +8,20 @@ without --save-best) holds one torch pickle:
      state_dict, "epoch", "step", "best_dice", "config" (JSON), "seed"}
 
 which is the reference's own format: cli/serve (`--weights`) and the JAX
-package's `cli/migrate.py` read it as it is. Every value is a tensor or a
-plain Python value, so it loads with torch.load(weights_only=True).
+package's `cli/migrate.py` read it as it is. With EMA on it also holds
+"ema" (parameter name -> the EMA weights; the inference restores pick
+them, cli/common.restore_for_inference); a step-exact preemption save
+holds "step_in_epoch" (train/preempt.py), and under --grad-accum, when it
+falls inside an accumulation window, "accum_grads" (the window's summed
+gradients, as the JAX save carries optax.MultiSteps' state). Every value
+is a tensor or a plain Python value, so it loads with
+torch.load(weights_only=True).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -48,9 +54,12 @@ class CheckpointManager:
         return os.path.isfile(self.path(kind))
 
     def save(self, kind: str, state: TrainState, *, epoch: int,
-             best_dice: float, config_json: str = "", seed: int = 0) -> str:
+             best_dice: float, config_json: str = "", seed: int = 0,
+             step_in_epoch: Optional[int] = None) -> str:
         """Write atomically (a temporary file, then a rename), so a run
-        killed mid-write leaves the previous checkpoint intact."""
+        killed mid-write leaves the previous checkpoint intact.
+        step_in_epoch marks a mid-epoch (preemption) save: resume
+        re-enters `epoch` at that step."""
         path = self.path(kind)
         payload = {
             "model": {k: v.detach().cpu()
@@ -60,6 +69,14 @@ class CheckpointManager:
             "best_dice": float(best_dice), "config": config_json,
             "seed": int(seed),
         }
+        if state.ema is not None:
+            payload["ema"] = {k: v.detach().cpu()
+                              for k, v in state.ema.items()}
+        grads = state.accumulated_grads()
+        if grads is not None:
+            payload["accum_grads"] = grads
+        if step_in_epoch is not None:
+            payload["step_in_epoch"] = int(step_in_epoch)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
         os.replace(tmp, path)
@@ -70,11 +87,17 @@ class CheckpointManager:
                           weights_only=True)
 
     def restore(self, kind: str, state: TrainState) -> Dict[str, Any]:
-        """Load model and optimizer state into `state` (in place) and set
-        its step; returns the checkpoint's metadata."""
+        """Load model, optimizer, EMA and any partly accumulated gradients
+        into `state` (in place) and set its step; returns the checkpoint's
+        metadata."""
         ckpt = self.load(kind)
         state.model.load_state_dict(ckpt["model"], strict=True)
         state.optimizer.load_state_dict(ckpt["optimizer"])
         state.step = int(ckpt["step"])
+        if state.ema is not None:
+            dev = next(state.model.parameters()).device
+            state.ema = {k: v.to(dev) for k, v in ckpt["ema"].items()}
+        if "accum_grads" in ckpt:
+            state.load_accumulated_grads(ckpt["accum_grads"])
         return {k: v for k, v in ckpt.items()
-                if k not in ("model", "optimizer")}
+                if k not in ("model", "optimizer", "ema", "accum_grads")}

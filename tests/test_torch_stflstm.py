@@ -181,9 +181,14 @@ def test_entry_points_refuse_missing_cuda(port_model):
 
 
 def test_unported_variants_raise():
+    """The per-frame re-roll mode is ported; a stop agreed across hosts
+    still waits for data parallelism."""
     from stf_unet_tpu_torch.data.transforms import TrainAugment
+    from stf_unet_tpu_torch.train.preempt import PreemptionGuard
+    assert not TrainAugment(DataConfig(
+        shared_frame_augmentation=False)).cfg.shared_frame_augmentation
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainAugment(DataConfig(shared_frame_augmentation=False))
+        PreemptionGuard(num_hosts=2)
 
 
 def _imported_roots(path):

@@ -221,5 +221,27 @@ def test_sample_params_ranges():
 
 
 def test_per_frame_quirk_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.TrainAugment(DataConfig(shared_frame_augmentation=False))
+    """Ported since: the per-frame mode warps every plane under its own
+    draw (one grid per plane from grids(planes=P)), the target following
+    frame 0's, through one warp call."""
+    cfg = DataConfig(base_size=40, crop_size=32,
+                     shared_frame_augmentation=False)
+    aug = T.TrainAugment(cfg)
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.integers(0, 256, (2, 8, 40, 40),
+                                           dtype=np.uint8))
+    masks = torch.from_numpy(rng.integers(0, 2, (2, 40, 40),
+                                          dtype=np.uint8))
+    sizes = torch.tensor([[40, 40], [36, 38]])
+    images, targets = aug(augment_generator(0, 0, 0), frames, masks, sizes)
+    gy, gx = aug.grids(augment_generator(0, 0, 0), sizes, "cpu", planes=8)
+    gy, gx = gy.view(2, 8, 32, 32), gx.view(2, 8, 32, 32)
+    for b in range(2):
+        for p in range(8):
+            stacked = torch.stack([frames[b, p], masks[b]])[None]
+            bil, near = warp_plain(stacked, gy[b, p][None], gx[b, p][None],
+                                   sizes[b:b + 1].float(), aug.alpha,
+                                   aug.beta)
+            assert torch.equal(images[b, p, ..., 0], bil[0, 0])
+            if p == 0:
+                assert torch.equal(targets[b], near[0].long())
