@@ -99,6 +99,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
      pack and RAM cache; --batch-size auto on the full-width config (per
      sample and fixed bytes, the pick) and one step at the pick, its
      peak memory against the budget. K1, K1b, K2 and K3 must launch.
+ 16. pk_enhanced: `pk.maps --enhanced` over the tree's 12 volumes (finite
+     maps, zero outside the enhanced tissue mask, tissue share, s per
+     volume; K4 launched 2 x lm_iters times per voxel chunk); one
+     volume's enhanced maps through K4 against the plain sums (within
+     1e-4 on 99 % of voxels, or else within the plain path's own spread
+     under 1e-7 of curve noise); --compare-aif on the test split; --debug
+     with LM and with Adam (the loss trace falls). Without matplotlib the
+     compare and debug steps run their numbers, and the line says so.
+ 17. predict: `cli.predict.main` (bf16) on phase 6's best checkpoint at
+     256^2 native, over a labels-free copy of the test images and the
+     same slices as .npz with --pk-fit --pk-enhanced --save-probs
+     --full-size, then --tta, then --tiled: K1, K3 (and K4 with --pk-fit)
+     launched in each; the masks against cli/serve's answers for the
+     same frames; ms per slice split into forward and fit; a profiler
+     view of one --pk-fit slice.
+ 18. pipeline: `cli.pipeline.main --enhanced` (bf16) over the test split
+     from phase 15's pack: avg fused seconds per sample; K1, K3, K4.
+ 19. serve_dir: cli/serve.build_server with --model-dir --tta --tiled
+     --warmup-geometries 256x256 answering 224^2 and 256^2 requests (ms
+     per request); POST /v1/reload after phase 15's checkpoint replaces
+     the best (the next answer is the new weights'), and 409 for a
+     checkpoint of another architecture; K1 and K3 launched.
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -2329,6 +2351,406 @@ def train_extras_phase(tmpdir: str, data: str, device: str = "cuda"):
     return launches
 
 
+# The labels-free deployment path (phases 16-19): phase 6's full-width
+# best STF-LSTM-UNet checkpoint and the synthetic tree. The enhanced fits
+# are ill-conditioned (each frame min-max normalized on its own; ve at
+# its floor on many voxels): K4's maps are held to the plain sums' within
+# FIT_TOL on FIT_SHARE where they can be, and otherwise to the plain
+# path's own spread: at each SPREAD_TOLS, K4 against plain keeps at least
+# the share of voxels that the plain path keeps against itself on curves
+# with 1e-7 of noise, less SPREAD_SLACK (tests/test_torch_pk_enhanced.py
+# holds the port to the JAX package on the same terms).
+FIT_TOL, FIT_SHARE = 1e-4, 0.99
+SPREAD_TOLS, SPREAD_SLACK = (1e-4, 1e-2, 1e-1), 0.05
+# predict's masks against the server's for the same frames (bf16; batches
+# of other sizes may flip a near-tie).
+PREDICT_SERVE_SHARE = 0.999
+SERVE_DIR_REQUESTS = 4
+
+
+def _launches(kernels) -> dict:
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def _share_within(got, want, tol):
+    return float((np.abs(got - want) <= tol).all(axis=1).mean())
+
+
+def _have_matplotlib() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def pk_enhanced_phase(tmpdir: str, data: str):
+    """16. pk.maps --enhanced over the tree's volumes (finite maps, tissue
+    share, s per volume; K4 launched 2 x lm_iters times per chunk of
+    every volume); one volume's enhanced maps through K4 against the
+    plain sums; --compare-aif over the test split's patients; --debug
+    with LM and with Adam (the Adam loss trace falls). The renders need
+    matplotlib: where it does not import, the compare and debug steps run
+    their numbers (pk/enhanced.aif_method_maps, pk/debug.debug_fit and
+    aif_debug_numbers) and the line says so. Returns the launch counts."""
+    import math
+
+    import torch
+
+    from stf_unet_tpu_torch.core.config import PKConfig
+    from stf_unet_tpu_torch.pk import debug as pk_debug
+    from stf_unet_tpu_torch.pk import enhanced
+    from stf_unet_tpu_torch.pk import maps as pk_maps
+    from stf_unet_tpu_torch.pk.aif import auto_detect_aif, make_aif
+    from stf_unet_tpu_torch.pk.fit import CHUNK, fit_lm
+    from stf_unet_tpu_torch.pk.tofts import ToftsQuadrature
+
+    t_phase = time.perf_counter()
+    cfg = PKConfig()
+    volumes = pk_volumes(data)
+    masks = [enhanced.tissue_mask_u8(frames.astype(np.float32) / 255.0)[1]
+             > 0 for _, _, frames, _ in volumes]
+    chunks = sum(math.ceil(int(m.sum()) / CHUNK) for m in masks)
+    kernels = reset_counts()
+    t0 = time.perf_counter()
+    pk_maps.main([data, "--solver", "lm", "--enhanced", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(kernels)
+    check(launches["tofts_sums"] == chunks * 2 * cfg.lm_iters,
+          f"enhanced: K4 launched {launches['tofts_sums']} times, expected "
+          f"{chunks} chunks x 2 x {cfg.lm_iters}")
+    for (split, patient, _, _), mask in zip(volumes, masks):
+        out = os.path.join(data, "seg", split, "pk_maps", patient)
+        for name in pk_maps.PARAM_NAMES:
+            raw = np.load(os.path.join(out, f"{name}_raw.npy"))
+            check(raw.shape == mask.shape and bool(np.isfinite(raw).all()),
+                  f"enhanced {split}/{patient}: {name} map {raw.shape}")
+            check(not raw[~mask].any(), f"enhanced {split}/{patient}: "
+                                        f"{name} outside the tissue")
+
+    # one volume through K4 and through the plain sums (not counted)
+    _, _, frames, _ = volumes[0]
+    imgs, tissue = enhanced.enhanced_preprocess(frames)
+    curves = imgs.transpose(1, 2, 0)[tissue]
+    quad = ToftsQuadrature.build(cfg.time_points, make_aif(cfg.aif_method),
+                                 cfg.dt, device="cuda")
+    kern = fit_lm(curves, quad, cfg, backend="auto")
+    plain = fit_lm(curves, quad, cfg, backend="plain")
+    noise = np.random.default_rng(0).normal(0, 1e-7, curves.shape)
+    noisy = fit_lm((curves + noise * (curves > 0)).astype(np.float32), quad,
+                   cfg, backend="plain")
+    shares = {tol: {"k4_vs_plain": _share_within(kern, plain, tol),
+                    "plain_noisy_vs_plain": _share_within(noisy, plain,
+                                                          tol)}
+              for tol in SPREAD_TOLS}
+    held_exact = shares[FIT_TOL]["k4_vs_plain"] >= FIT_SHARE
+    check(bool(np.isfinite(kern).all()), "enhanced K4 maps not finite")
+    if not held_exact:
+        for tol, s in shares.items():
+            check(s["k4_vs_plain"] >= s["plain_noisy_vs_plain"]
+                  - SPREAD_SLACK, f"enhanced K4 maps against plain at "
+                                  f"{tol}: {s}")
+
+    drawn = _have_matplotlib()
+    test_dir = os.path.join(data, "seg", "test", "images")
+    test_patients = sorted(os.listdir(test_dir))
+    t0 = time.perf_counter()
+    if drawn:
+        pk_maps.main([data, "--splits", "test", "--compare-aif",
+                      "--device", "cuda"])
+        out = os.path.join(data, "seg", "test", "pk_aif_comparison")
+        compare = {p: sorted(os.listdir(os.path.join(out, p)))
+                   for p in test_patients}
+    else:
+        compare = {}
+        for patient in test_patients:
+            got = enhanced.aif_method_maps(
+                pk_maps._load_patient_frames(os.path.join(test_dir,
+                                                          patient)),
+                cfg, os.path.join(tmpdir, "aif_compare", patient),
+                device="cuda")
+            compare[patient] = {m: float(np.median(v[0][v[0] > 0]))
+                                if (v[0] > 0).any() else 0.0
+                                for m, v in got.items()}
+    compare_s = time.perf_counter() - t0
+
+    debug = {}
+    for solver in ("lm", "adam"):
+        t0 = time.perf_counter()
+        if drawn:
+            pk_maps.main([data, "--splits", "test", "--solver", solver,
+                          "--aif-method", "auto", "--debug", "--device",
+                          "cuda"])
+        _, losses = pk_debug.debug_fit(curves, quad,
+                                       PKConfig(solver=solver))
+        nums = pk_debug.aif_debug_numbers(
+            imgs, tissue, auto_detect_aif(imgs, tissue,
+                                          np.asarray(cfg.time_points))[1])
+        debug[solver] = {"s": time.perf_counter() - t0,
+                         "aif_position": nums["position"]}
+        if losses is not None:
+            debug[solver].update(loss_first=float(losses[0]),
+                                 loss_last=float(losses[-1]))
+            check(bool(losses[-1] < losses[0]),
+                  f"--debug adam: the loss did not fall {losses[[0, -1]]}")
+    print(json.dumps({"pk_enhanced": {
+        "volumes": len(volumes), "wall_s": wall,
+        "s_per_volume": wall / len(volumes),
+        "tissue_share": [float(m.mean()) for m in masks],
+        "chunks": chunks, "launches": launches,
+        "k4_vs_plain": {"tissue_voxels": len(curves),
+                        "held_within_fit_tol": held_exact,
+                        "shares": {str(k): v for k, v in shares.items()},
+                        "max_abs_diff": float(np.abs(kern - plain).max())},
+        "matplotlib": drawn, "compare_aif": compare,
+        "compare_aif_s": compare_s, "debug": debug,
+        "phase_wall_s": time.perf_counter() - t_phase}}), flush=True)
+    return launches
+
+
+def predict_phase(tmpdir: str, data: str, weights: str):
+    """17. cli.predict.main (bf16) with the phase-6 checkpoint at 256^2
+    native: a labels-free copy of the test images and the same slices as
+    .npz, with --pk-fit --pk-enhanced --save-probs --full-size; then
+    --tta, then --tiled. K1f, K3 (and, with --pk-fit, K4) launched in
+    each run; the masks against cli/serve's answers for the same frames;
+    ms per slice with the split between forward and fit; a profiler view
+    of one --pk-fit slice (the card's idle share). Returns the launch
+    counts, summed."""
+    import shutil
+
+    import torch
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from stf_unet_tpu_torch.cli import predict
+    from stf_unet_tpu_torch.cli.serve import build_server, parse_args
+    from stf_unet_tpu_torch.data.loader import decode_stack
+
+    t_phase = time.perf_counter()
+    seqs = [f"SUB{i}" for i in range(1, T_STEPS + 1)]
+    unlabeled = os.path.join(tmpdir, "unlabeled")
+    shutil.copytree(os.path.join(data, "seg", "test", "images"), unlabeled)
+    npz_dir = os.path.join(tmpdir, "unlabeled_npz")
+    os.makedirs(npz_dir)
+    stacks = {}
+    for patient in sorted(os.listdir(unlabeled)):
+        for name in sorted(os.listdir(os.path.join(unlabeled, patient,
+                                                   seqs[0]))):
+            stem = os.path.splitext(name)[0]
+            frames = decode_stack([os.path.join(unlabeled, patient, s, name)
+                                   for s in seqs])
+            stacks[(patient, stem)] = frames
+            np.savez(os.path.join(npz_dir, f"{patient}_{stem}.npz"),
+                     frames=frames)
+    base = ["--model", "stflstm", "--model-dir", weights,
+            "--use-subtraction", "--dtype", "bf16", "--device", "cuda"]
+    runs = {"pk_fit": ["--pk-fit", "--pk-enhanced", "--save-probs",
+                       "--full-size"],
+            "tta": ["--tta", "--full-size"], "tiled": ["--tiled"]}
+    total = {name: 0 for name in counters()}
+    lines, outs = {}, {}
+    for mode, flags in runs.items():
+        for kind, path in (("images", unlabeled), ("npz", npz_dir)):
+            if mode != "pk_fit" and kind == "npz":
+                continue
+            out = os.path.join(tmpdir, f"predict_{mode}_{kind}")
+            kernels = reset_counts()
+            result = predict.main(base + ["--input", path, "--output-dir",
+                                          out, *flags])
+            launches = _launches(kernels)
+            for name, n in launches.items():
+                total[name] += n
+            want = ["lstm_last_x", "lstm_last"] + (
+                ["tofts_sums"] if mode == "pk_fit" else [])
+            for name in want:
+                check(launches[name] > 0, f"kernel {name} never launched "
+                                          f"in predict {mode} {kind}")
+            n = result["slices"]
+            check(n == len(stacks), f"predict {mode}: {n} slices, expected "
+                                    f"{len(stacks)}")
+            sec = result["seconds"]
+            lines[f"{mode}_{kind}"] = {
+                "slices": n,
+                "ms_per_slice": sec["total"] * 1e3 / n,
+                "ms_per_slice_after_restore":
+                    (sec["total"] - sec["restore"]) * 1e3 / n,
+                "forward_ms_per_slice": sec["forward"] * 1e3 / n,
+                "pk_fit_ms_per_slice": sec["pk_fit"] * 1e3 / n,
+                "restore_s": sec["restore"], "launches": launches}
+            outs[(mode, kind)] = out
+
+    # the masks against the server's answers for the same frames
+    server = build_server(parse_args(
+        ["--model", "stflstm", "--model-dir", weights, "--use-subtraction",
+         "--port", "0", "--dtype", "bf16", "--max-batch", "8",
+         "--device", "cuda"]))
+    agree = []
+    for (patient, stem), frames in stacks.items():
+        served = server.segment(frames, full_size=True)
+        for kind, name in (("images", os.path.join(patient, stem)),
+                           ("npz", os.path.join(f"{patient}_{stem}",
+                                                f"{patient}_{stem}"))):
+            mask = np.asarray(Image.open(os.path.join(
+                outs[("pk_fit", kind)], f"{name}_mask.png"))) // 255
+            check(mask.shape == served.shape, f"predict mask {mask.shape}, "
+                                              f"served {served.shape}")
+            agree.append(float((mask == served).mean()))
+            pk = np.load(os.path.join(outs[("pk_fit", kind)],
+                                      f"{name}_pk.npz"))
+            check(all(np.isfinite(pk[k]).all() for k in ("ktrans", "ve",
+                                                         "vp")),
+                  f"predict {kind} {name}: non-finite PK maps")
+    server.batcher.close()
+    server.httpd.server_close()
+    check(min(agree) >= PREDICT_SERVE_SHARE, f"predict masks against the "
+                                             f"server's: {min(agree)}")
+
+    # one --pk-fit slice under the profiler
+    one = os.path.join(npz_dir, sorted(os.listdir(npz_dir))[0])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        result = predict.main(base + ["--input", one, "--output-dir",
+                                      os.path.join(tmpdir, "predict_one"),
+                                      *runs["pk_fit"]])
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(dev_ms(e) for e in kern)
+    sec = result["seconds"]
+    work_ms = (sec["forward"] + sec["pk_fit"]) * 1e3
+    print(json.dumps({"predict": {
+        **lines, "masks_equal_to_served_min_share": min(agree),
+        "masks_equal_to_served_mean_share": float(np.mean(agree)),
+        "one_pk_fit_slice": {
+            "forward_ms": sec["forward"] * 1e3,
+            "pk_fit_ms": sec["pk_fit"] * 1e3,
+            "total_ms": sec["total"] * 1e3,
+            "kernel_busy_ms": busy if busy else "not measured",
+            "device_idle_share_forward_and_fit": (1 - busy / work_ms)
+            if busy else "not measured",
+            "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                             "ms": dev_ms(e)} for e in
+                            sorted(kern, key=dev_ms, reverse=True)[:6]]},
+        "phase_wall_s": time.perf_counter() - t_phase}}), flush=True)
+    return total
+
+
+def pipeline_phase(tmpdir: str, data: str, weights: str):
+    """18. cli.pipeline.main --enhanced (bf16) over the test split from
+    the phase-15 pack: a render per sample, the mean seconds of forward
+    + fit per sample; K1f, K3 and K4 launched. Returns the launch
+    counts."""
+    from stf_unet_tpu_torch.cli import pipeline
+
+    out = os.path.join(tmpdir, "pipeline")
+    kernels = reset_counts()
+    t0 = time.perf_counter()
+    result = pipeline.main([
+        "--root", data, "--model", "stflstm", "--model-dir", weights,
+        "--use-subtraction", "--enhanced", "--data-pack",
+        os.path.join(tmpdir, "pack"), "--output-dir", out, "--dtype",
+        "bf16", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = _launches(kernels)
+    for name in ("lstm_last_x", "lstm_last", "tofts_sums"):
+        check(launches[name] > 0, f"kernel {name} never launched in "
+                                  f"cli.pipeline")
+    n = result["samples"]
+    check(n == EVAL_PATIENTS * TRAIN_SLICES and len(os.listdir(out)) == n,
+          f"pipeline: {n} samples, {len(os.listdir(out))} renders")
+    print(json.dumps({"pipeline": {
+        "samples": n, "wall_s": wall,
+        "avg_fused_s_per_sample": result["avg_seconds"],
+        "seconds": result["seconds"], "launches": launches}}), flush=True)
+    return launches
+
+
+def serve_dir_phase(weights: str, newer: str, pk_best: str):
+    """19. cli/serve.build_server with --model-dir --tta --tiled
+    --warmup-geometries 256x256 (bf16): requests at 224^2 (the batched
+    path) and 256^2 (the tiles), ms per request; then POST /v1/reload
+    after `newer` (another run's checkpoint of the same model) replaces
+    the best: the next answer is the new weights'; a checkpoint of
+    another architecture (the PK model's) is refused with 409 and the
+    served weights stay. K1f and K3 launched. Returns the launch
+    counts."""
+    import shutil
+
+    import torch
+
+    from stf_unet_tpu_torch.cli.common import load_reference_checkpoint
+    from stf_unet_tpu_torch.cli.serve import build_server, parse_args
+    from stf_unet_tpu_torch.serve.client import (SegmentationClient,
+                                                 ServerError)
+
+    t_phase = time.perf_counter()
+    best = os.path.join(weights, "stflstm_best_model.pth")
+    kept = best + ".kept"
+    shutil.copy(best, kept)
+    server = build_server(parse_args(
+        ["--model", "stflstm", "--model-dir", weights, "--use-subtraction",
+         "--tta", "--tiled", "--warmup-geometries", "256x256", "--port",
+         "0", "--dtype", "bf16", "--max-batch", "8", "--device", "cuda"]))
+    build_s = time.perf_counter() - t_phase
+    rng = np.random.default_rng(3)
+    frames = {size: [rng.integers(0, 256, (T_STEPS, size, size),
+                                  dtype=np.uint8)
+                     for _ in range(SERVE_DIR_REQUESTS)]
+              for size in (CROP, TRAIN_SRC)}
+    server.start()
+    try:
+        client = SegmentationClient("http://%s:%d" % server.address,
+                                    timeout=300)
+        kernels = reset_counts()
+        ms = {}
+        for size, stack in frames.items():
+            t0 = time.perf_counter()
+            masks = [client.segment(f) for f in stack]
+            ms[size] = (time.perf_counter() - t0) * 1e3 / len(stack)
+            for m in masks:
+                check(m.shape == (size, size), f"serve_dir {size}: mask "
+                                               f"{m.shape}")
+        torch.cuda.synchronize()
+        launches = _launches(kernels)
+        probe = frames[TRAIN_SRC][0]
+        before = client.segment(probe)
+        shutil.copy(newer, best)
+        info = client.reload()
+        after = client.segment(probe)
+        new = load_reference_checkpoint(newer)[0]
+        swapped = all(torch.equal(v.cpu(), new[k]) for k, v in
+                      server.weights.state_dict().items())
+        direct = server.engine.predict(probe[None, ..., None])[0]
+        check(swapped, "reload did not load the new checkpoint")
+        check(bool(np.array_equal(after, direct)),
+              "the answer after reload is not the new weights' mask")
+        shutil.copy(pk_best, best)
+        try:
+            client.reload()
+            refused = None
+        except ServerError as e:
+            refused = e.code
+        check(refused == 409, f"reload of another architecture: {refused}")
+        check(bool(np.array_equal(client.segment(probe), after)),
+              "the served weights moved after a refused reload")
+        metrics = client.metrics()
+    finally:
+        server.stop()
+        shutil.move(kept, best)
+    for name in ("lstm_last_x", "lstm_last"):
+        check(launches[name] > 0, f"kernel {name} never launched in "
+                                  f"serve_dir")
+    print(json.dumps({"serve_dir": {
+        "build_and_warmup_s": build_s,
+        "ms_per_request_tta": ms[CROP],
+        "ms_per_request_tta_tiled_256": ms[TRAIN_SRC],
+        "reload": {"info": info, "mask_changed":
+                   bool(not np.array_equal(before, after)),
+                   "refused_other_architecture": refused},
+        "errors": metrics["errors"], "launches": launches,
+        "phase_wall_s": time.perf_counter() - t_phase}}), flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2407,6 +2829,17 @@ def main() -> int:
         # the training leftovers: packs, extras, EMA, accumulation,
         # preemption, the RAM cache, autobatch
         extras_launches = train_extras_phase(tmpdir, data)
+        torch.cuda.empty_cache()
+        # the labels-free deployment path on phase 6's checkpoint
+        stf_weights = os.path.join(tmpdir, "weights")
+        deploy = {
+            "pk_enhanced": pk_enhanced_phase(tmpdir, data),
+            "predict": predict_phase(tmpdir, data, stf_weights),
+            "pipeline": pipeline_phase(tmpdir, data, stf_weights),
+            "serve_dir": serve_dir_phase(
+                stf_weights, os.path.join(tmpdir, "weights_extras",
+                                          "stflstm_latest_model.pth"),
+                best)}
     pk_launches = {name: sum(run[name] for run in pk_runs)
                    for name in counters()}
 
@@ -2436,7 +2869,9 @@ def main() -> int:
                    "unet_train": unet_launches[k["name"]],
                    "cli_test": cli_launches[k["name"]],
                    "pk": pk_launches[k["name"]],
-                   "train_extras": extras_launches[k["name"]]}
+                   "train_extras": extras_launches[k["name"]],
+                   **{path: counts[k["name"]]
+                      for path, counts in deploy.items()}}
         k.update(launches=sum(by_path.values()), launches_by_path=by_path,
                  max_abs_err=a["max_abs_err"], ms=a["ms"],
                  plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],

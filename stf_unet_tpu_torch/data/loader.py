@@ -84,11 +84,12 @@ def decode_stack(paths: Sequence[str]) -> np.ndarray:
 PK_PARAM_NAMES = ("ktrans", "ve", "vp")  # ref:my_dataset.py:203
 
 
-def load_pk_stack(pk_dir: str, h: int, w: int) -> np.ndarray:
+def load_pk_stack(pk_dir: str, h: int, w: int,
+                  warn: bool = False) -> np.ndarray:
     """[3, H, W] uint8 ktrans/ve/vp stack from `pk_dir/{name}.png`.
     Off-resolution maps NEAREST-resize to (h, w) (PIL, as
     ref:my_dataset.py:214); missing or unreadable maps zero-fill
-    (ref:206-224)."""
+    (ref:206-224), printing a warning when asked."""
     maps = []
     for name in PK_PARAM_NAMES:
         path = f"{pk_dir}/{name}.png"
@@ -98,6 +99,8 @@ def load_pk_stack(pk_dir: str, h: int, w: int) -> np.ndarray:
                 arr = np.asarray(
                     Image.fromarray(arr).resize((w, h), Image.NEAREST))
         except OSError:  # missing or unreadable: zero-fill, as the reference
+            if warn:
+                print(f"Warning: PK map {path} unreadable — zero-filling")
             arr = np.zeros((h, w), dtype=np.uint8)
         maps.append(arr)
     return np.stack(maps)

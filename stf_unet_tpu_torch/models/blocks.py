@@ -20,10 +20,75 @@ BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
 
 
-def TorchBatchNorm(features: int) -> nn.BatchNorm2d:
-    """BatchNorm2d with torch default hyperparameters. Its parameters stay
-    float32; a bfloat16 input is normalized and returned in bfloat16."""
-    return nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+class TorchBatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d with torch default hyperparameters whose running
+    variance moves toward the biased batch variance, as flax's BatchNorm
+    (the JAX package's) does; nn.BatchNorm2d moves it toward the unbiased
+    one, n / (n - 1) larger, n = the rows per channel. The normalized
+    output, eval mode and the state_dict are nn.BatchNorm2d's. Its
+    parameters stay float32; a bfloat16 input is normalized and returned
+    in bfloat16.
+
+    torch's fused train-mode forward kernels make their update,
+    new = (1 - m) * old + m * unbiased; a correction then gives flax's,
+        (1 - m) * old + m * biased = new + ((1 - m) * old - new) / n,
+    a lerp of new toward (1 - m) * old by 1 / n, made on `.data`: the
+    backward keeps the buffer among its inputs (it reads it only in eval
+    mode) and must not see its version move. A layer corrects itself
+    (two small launches) unless its model's forward hooks
+    (`batch_running_var_updates`) hold it: then one foreach pass corrects
+    every layer of the model after the forward."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        # None: correct itself; 0: held by the model's hooks, not run yet
+        # in this forward; > 0: held, ran over this many rows
+        self.held_rows = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        rows = x.numel() // x.shape[1]
+        if self.held_rows == 0:
+            self.held_rows = rows
+            return super().forward(x)
+        keep = self.running_var * (1.0 - self.momentum)
+        y = super().forward(x)
+        self.running_var.data.lerp_(keep, 1.0 / rows)
+        return y
+
+
+def _hold_running_vars(model: nn.Module, args) -> None:
+    layers = [m for m in model.modules() if isinstance(m, TorchBatchNorm)
+              and m.training and m.track_running_stats]
+    if not layers:
+        return
+    for m in layers:
+        m.held_rows = 0
+    with torch.no_grad():
+        keep = torch._foreach_mul([m.running_var for m in layers],
+                                  [1.0 - m.momentum for m in layers])
+    model.__dict__["_held_running_vars"] = (layers, keep)
+
+
+def _correct_running_vars(model: nn.Module, args, out) -> None:
+    layers, keep = model.__dict__.pop("_held_running_vars", ((), ()))
+    ran = [i for i, m in enumerate(layers) if m.held_rows]
+    if ran:
+        torch._foreach_lerp_([layers[i].running_var.data for i in ran],
+                             [keep[i] for i in ran],
+                             [1.0 / layers[i].held_rows for i in ran])
+    for m in layers:
+        m.held_rows = None
+
+
+def batch_running_var_updates(model: nn.Module) -> None:
+    """Register the forward hooks that take the running-variance
+    correction of every TorchBatchNorm of `model` in one foreach pass per
+    train-mode forward (a snapshot before it, the lerp after it) instead
+    of two launches per layer. Each layer must run once per forward."""
+    model.register_forward_pre_hook(_hold_running_vars)
+    model.register_forward_hook(_correct_running_vars)
 
 
 class DoubleConv(nn.Sequential):

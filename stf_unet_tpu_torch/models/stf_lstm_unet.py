@@ -36,7 +36,8 @@ import torch
 import torch.nn as nn
 
 from stf_unet_tpu_torch.models.blocks import (ConvTranspose, DecoderBlock,
-                                              ResidualConvBlock)
+                                              ResidualConvBlock,
+                                              batch_running_var_updates)
 from stf_unet_tpu_torch.models.resnet import ResNet34Encoder
 from stf_unet_tpu_torch.ops.conv import Conv2d
 from stf_unet_tpu_torch.ops.lstm import pixel_lstm
@@ -98,6 +99,7 @@ class STFLSTMUNet(ResNet34Encoder):
         self.upconv1 = ConvTranspose(64, 32)
         self.final_res = ResidualConvBlock(32, 32)
         self.final = Conv2d(32, num_classes, 1)
+        batch_running_var_updates(self)
 
     def set_lstm_backend(self, backend: str) -> None:
         for i in range(len(_SCALE_WIDTHS)):

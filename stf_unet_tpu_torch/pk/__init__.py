@@ -1,8 +1,13 @@
 from stf_unet_tpu_torch.pk.aif import (auto_detect_aif, make_aif,
                                       modified_aif, population_aif)
-from stf_unet_tpu_torch.pk.fit import (fit_adam, fit_lm, preprocess_images,
+from stf_unet_tpu_torch.pk.enhanced import (compare_aif_methods,
+                                           enhanced_preprocess,
+                                           fit_volume_enhanced,
+                                           postprocess_param_maps)
+from stf_unet_tpu_torch.pk.fit import (fit_adam, fit_adam_debug, fit_lm,
+                                      preprocess_images,
                                       tissue_mask_morphology)
-from stf_unet_tpu_torch.pk.maps import (fit_volume,
+from stf_unet_tpu_torch.pk.maps import (compare_aif_for_dataset, fit_volume,
                                        generate_pk_maps_for_dataset,
                                        process_dataset, process_patient)
 from stf_unet_tpu_torch.pk.tofts import (ToftsQuadrature,
@@ -16,6 +21,7 @@ __all__ = [
     "ToftsQuadrature",
     "extended_tofts_batch",
     "fit_adam",
+    "fit_adam_debug",
     "fit_lm",
     "preprocess_images",
     "tissue_mask_morphology",
@@ -23,4 +29,9 @@ __all__ = [
     "process_patient",
     "process_dataset",
     "generate_pk_maps_for_dataset",
+    "compare_aif_for_dataset",
+    "enhanced_preprocess",
+    "postprocess_param_maps",
+    "fit_volume_enhanced",
+    "compare_aif_methods",
 ]

@@ -6,7 +6,8 @@ Two solvers over the same quadrature forward model (pk/tofts.py):
     analytic 3-parameter Jacobian and a closed-form 3x3 solve. Each
     iteration takes the quadrature sums twice (the Jacobian's and the
     trial step's), through kernel K4 on CUDA.
-  * fit_adam - the reference's solver: Adam(lr=0.005) over num_epochs
+  * fit_adam - the reference's solver (fit_adam_debug also returns the
+    loss of every epoch): Adam(lr=0.005) over num_epochs
     full-batch updates with the parameters clamped into the physiological
     box after every step, its gradient taken by autograd through the plain
     forward (as the JAX package differentiates its XLA path), at the fixed
@@ -37,22 +38,32 @@ from stf_unet_tpu_torch.pk.tofts import (ToftsQuadrature, dual_sums,
 CHUNK = 16384
 
 
-def tissue_mask_morphology(mask, kernel: int = 5) -> np.ndarray:
-    """Binary open then close with a kernel x kernel window
-    (ref:pk_fitting.py:184-186) by scipy's min/max filters, with
-    cv2.morphologyEx's border rule: erosion pads with 1, dilation with 0."""
+def erode(image: np.ndarray, kernel: int = 5) -> np.ndarray:
+    """cv2.erode with a kernel x kernel window of ones and cv2's default
+    border, which never erodes from outside the image (scipy's minimum
+    filter padded with the dtype's maximum)."""
     from scipy import ndimage
 
+    image = np.asarray(image)
+    top = True if image.dtype == bool else np.iinfo(image.dtype).max
+    return ndimage.minimum_filter(image, size=kernel, mode="constant",
+                                  cval=top)
+
+
+def dilate(image: np.ndarray, kernel: int = 5) -> np.ndarray:
+    """cv2.dilate likewise: the border never dilates into the image."""
+    from scipy import ndimage
+
+    return ndimage.maximum_filter(np.asarray(image), size=kernel,
+                                  mode="constant", cval=0)
+
+
+def tissue_mask_morphology(mask, kernel: int = 5) -> np.ndarray:
+    """Binary open then close with a kernel x kernel window
+    (ref:pk_fitting.py:184-186), as cv2.morphologyEx computes them."""
     m = np.asarray(mask).astype(np.uint8)
-
-    def erode(x):
-        return ndimage.minimum_filter(x, size=kernel, mode="constant", cval=1)
-
-    def dilate(x):
-        return ndimage.maximum_filter(x, size=kernel, mode="constant", cval=0)
-
-    opened = dilate(erode(m))
-    closed = erode(dilate(opened))
+    opened = dilate(erode(m, kernel), kernel)
+    closed = erode(dilate(opened, kernel), kernel)
     return closed > 0
 
 
@@ -143,10 +154,12 @@ def _lm_fit_chunk(curves: torch.Tensor, quad: ToftsQuadrature,
 
 
 def _adam_fit_chunk(curves: torch.Tensor, quad: ToftsQuadrature,
-                    cfg: PKConfig) -> torch.Tensor:
+                    cfg: PKConfig, with_losses: bool = False):
     """Adam with torch defaults (betas 0.9/0.999, eps 1e-8; the reference's
     torch.optim.Adam(lr=0.005), ref:300), one full-batch update per epoch;
-    the bias corrections are taken in float32 as in the JAX package."""
+    the bias corrections are taken in float32 as in the JAX package.
+    with_losses: also return each epoch's sum of row MSEs (before that
+    epoch's update) over the chunk, [num_epochs], for the debug render."""
     n = curves.shape[0]
     dev = curves.device
     lo, hi = _bounds(cfg, dev)
@@ -155,6 +168,7 @@ def _adam_fit_chunk(curves: torch.Tensor, quad: ToftsQuadrature,
     params = _init_params(n, cfg, dev).clone()
     m = torch.zeros_like(params)
     v = torch.zeros_like(params)
+    losses = []
     for i in range(cfg.num_epochs):
         p = params.detach().requires_grad_()
         pred = extended_tofts_batch(quad, p[:, 0], p[:, 1], p[:, 2])
@@ -162,6 +176,8 @@ def _adam_fit_chunk(curves: torch.Tensor, quad: ToftsQuadrature,
         # the reference's minibatch-mean scale, fixed (ref:316-330)
         (g,) = torch.autograd.grad(torch.sum(row_mse) * (1.0 / 1024.0), p)
         with torch.no_grad():
+            if with_losses:
+                losses.append(torch.sum(row_mse))
             m = b1 * m + (1 - b1) * g
             v = b2 * v + (1 - b2) * g * g
             t = torch.tensor(float(i + 1), dtype=f32, device=dev)
@@ -169,6 +185,8 @@ def _adam_fit_chunk(curves: torch.Tensor, quad: ToftsQuadrature,
             vhat = v / (1 - torch.tensor(b2, dtype=f32, device=dev) ** t)
             params = params - cfg.lr * mhat / (torch.sqrt(vhat) + eps)
             params = torch.clamp(params, lo, hi)
+    if with_losses:
+        return params, torch.stack(losses)
     return params
 
 
@@ -201,3 +219,23 @@ def fit_adam(curves: np.ndarray, quad: ToftsQuadrature,
              cfg: PKConfig) -> np.ndarray:
     """[N, T] signal curves -> [N, 3], the reference's Adam solver."""
     return _fit_chunked(curves, quad, cfg, _adam_fit_chunk)
+
+
+def fit_adam_debug(curves: np.ndarray, quad: ToftsQuadrature,
+                   cfg: PKConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """fit_adam plus the loss of every epoch, [num_epochs] float32: the
+    sum of the row MSEs of every chunk divided by N, for the debug loss
+    render (ref:pk_fitting.py:357-366)."""
+    n = curves.shape[0]
+    if n == 0:
+        return (np.zeros((0, 3), np.float32),
+                np.zeros((cfg.num_epochs,), np.float32))
+    out, losses = [], []
+    for start in range(0, n, CHUNK):
+        chunk = torch.from_numpy(np.array(
+            curves[start:start + CHUNK], dtype=np.float32)).to(quad.device)
+        fitted, chunk_losses = _adam_fit_chunk(chunk, quad, cfg, True)
+        out.append(fitted.cpu().numpy())
+        losses.append(chunk_losses.cpu().numpy())
+    return (np.concatenate(out, axis=0),
+            (np.sum(losses, axis=0) / n).astype(np.float32))

@@ -4,15 +4,18 @@ drivers).
 
     python -m stf_unet_tpu_torch.pk.maps <BreaDM root> [--solver lm|adam]
         [--aif-method population|modified|auto] [--splits training,val,test]
+        [--enhanced] [--debug] [--compare-aif]
         [--num-shards N --shard-index i] [--device cuda|cpu]
 
 Writes `<root>/seg/<split>/pk_maps/<patient>/{ktrans,ve,vp}.png` with
 `{name}_raw.npy` and `combined_map.png`: the artifacts the dataset index
 and the loader read (ref:my_dataset.py:198-227). The fit runs on CUDA
-unless --device cpu is given. The enhanced preprocessing (pk/enhanced.py,
-which needs cv2), the debug renders (pk/debug.py, matplotlib),
---compare-aif and --data-parallel are not ported yet (ROADMAP.md §1,
-'PK leftovers').
+unless --device cpu is given. --enhanced fits through pk/enhanced.py's
+preprocessing and postprocessing; --debug writes pk/debug.py's renders
+under `<patient>/debug/` (matplotlib); --compare-aif writes the AIF
+methods' comparison under `<root>/seg/<split>/pk_aif_comparison/
+<patient>/` instead of the maps. --data-parallel waits for data
+parallelism (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -27,19 +30,24 @@ from PIL import Image
 
 from stf_unet_tpu_torch.core.config import PKConfig, resolve_device
 from stf_unet_tpu_torch.pk.aif import auto_detect_aif, make_aif
+from stf_unet_tpu_torch.pk.debug import fit_with_debug, render_aif_debug
 from stf_unet_tpu_torch.pk.fit import fit_adam, fit_lm, preprocess_images
 from stf_unet_tpu_torch.pk.tofts import ToftsQuadrature
 
 PARAM_NAMES = ("ktrans", "ve", "vp")
 _UNPORTED = "is not ported to the PyTorch package yet (ROADMAP.md §1, " \
-            "'PK leftovers')"
+            "'data parallelism')"
 
 
 def fit_volume(images: np.ndarray, cfg: PKConfig,
                output_dir: Optional[str] = None,
+               debug_output_dir: Optional[str] = None,
                device="cuda") -> np.ndarray:
     """[T, H, W] signal volume -> [3, H, W] (Ktrans, ve, vp) maps
-    (ref:fit_volume_gpu, pk_fitting.py:233-420), fitted on `device`."""
+    (ref:fit_volume_gpu, pk_fitting.py:233-420), fitted on `device`.
+    debug_output_dir: write the reference's diagnostic renders there
+    (pk/debug.py: sample voxel curves, Adam's loss curve, the auto AIF's
+    location, curve and derivative map)."""
     dev = resolve_device(device)
     t_steps, height, width = images.shape
     if t_steps != len(cfg.time_points):
@@ -57,6 +65,7 @@ def fit_volume(images: np.ndarray, cfg: PKConfig,
           f"(preprocess {time.time() - t0:.2f}s)")
 
     aif = make_aif(cfg.aif_method, cfg.aif_dose)
+    pos = None
     if cfg.aif_method == "auto":
         aif, pos = auto_detect_aif(imgs, mask_np,
                                    np.asarray(cfg.time_points))
@@ -64,7 +73,12 @@ def fit_volume(images: np.ndarray, cfg: PKConfig,
     quad = ToftsQuadrature.build(cfg.time_points, aif, cfg.dt, device=dev)
 
     t0 = time.time()
-    if cfg.solver == "lm":
+    if debug_output_dir is not None:
+        if pos is not None:
+            render_aif_debug(imgs, mask_np, cfg.time_points,
+                             debug_output_dir, position=pos)
+        fitted = fit_with_debug(valid, quad, cfg, debug_output_dir)
+    elif cfg.solver == "lm":
         fitted = fit_lm(valid, quad, cfg)  # [Nvalid, 3]
     else:
         fitted = fit_adam(valid, quad, cfg)
@@ -128,46 +142,65 @@ def _load_patient_frames(patient_path: str) -> Optional[np.ndarray]:
 
 
 def process_patient(patient_path: str, output_base_dir: str,
-                    cfg: Optional[PKConfig] = None, device="cuda"
+                    cfg: Optional[PKConfig] = None, enhanced: bool = False,
+                    debug: bool = False, device="cuda"
                     ) -> Optional[np.ndarray]:
     """Fit the first slice of each SUB1..8 sequence of one patient
-    (ref:605-670); None when it has no subtraction frames."""
+    (ref:605-670); None when it has no subtraction frames. enhanced:
+    through pk/enhanced.py's Otsu / bilateral preprocessing and the maps'
+    postprocessing; debug: the diagnostic renders under
+    <patient>/debug/."""
     cfg = cfg or PKConfig()
     patient_id = os.path.basename(patient_path)
     print(f"processing patient: {patient_id}")
     output_dir = os.path.join(output_base_dir, patient_id)
+    debug_dir = os.path.join(output_dir, "debug") if debug else None
     frames = _load_patient_frames(patient_path)
     if frames is None:
         return None
-    maps = fit_volume(frames, cfg, output_dir, device=device)
+    if enhanced:
+        from stf_unet_tpu_torch.pk.enhanced import fit_volume_enhanced
+        maps = fit_volume_enhanced(frames, cfg, output_dir,
+                                   debug_output_dir=debug_dir, device=device)
+    else:
+        maps = fit_volume(frames, cfg, output_dir,
+                          debug_output_dir=debug_dir, device=device)
     print(f"PK maps for patient {patient_id} saved to {output_dir}")
     return maps
 
 
+def _split_patients(dataset_path: str, split: str, num_shards: int,
+                    shard_index: int):
+    """(the split's images directory, its patients, this shard's)."""
+    if not (0 <= shard_index < num_shards):
+        raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
+    images_dir = os.path.join(dataset_path, "seg", split, "images")
+    patients = sorted(p for p in os.listdir(images_dir)
+                      if os.path.isdir(os.path.join(images_dir, p)))
+    return images_dir, patients, patients[shard_index::num_shards]
+
+
 def process_dataset(dataset_path: str, split: str = "training",
-                    cfg: Optional[PKConfig] = None, device="cuda",
+                    cfg: Optional[PKConfig] = None, enhanced: bool = False,
+                    debug: bool = False, device="cuda",
                     num_shards: int = 1, shard_index: int = 0) -> None:
     """All patients of one split (ref:673-696). num_shards / shard_index:
     patient-level sharding over independent processes or machines; shard
     i fits patients i, i+N, i+2N, ..."""
-    if not (0 <= shard_index < num_shards):
-        raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
-    images_dir = os.path.join(dataset_path, "seg", split, "images")
+    images_dir, every, patients = _split_patients(dataset_path, split,
+                                                  num_shards, shard_index)
     output_base = os.path.join(dataset_path, "seg", split, "pk_maps")
     os.makedirs(output_base, exist_ok=True)
-    patients = sorted(p for p in os.listdir(images_dir)
-                      if os.path.isdir(os.path.join(images_dir, p)))
     if num_shards > 1:
-        total = len(patients)
-        patients = patients[shard_index::num_shards]
-        print(f"found {total} patients; shard {shard_index}/{num_shards} "
-              f"takes {len(patients)}")
+        print(f"found {len(every)} patients; shard {shard_index}/"
+              f"{num_shards} takes {len(patients)}")
     else:
         print(f"found {len(patients)} patients")
     done = 0
     for patient in patients:
         maps = process_patient(os.path.join(images_dir, patient), output_base,
-                               cfg, device=device)
+                               cfg, enhanced=enhanced, debug=debug,
+                               device=device)
         done += maps is not None
     print(f"{split}: PK maps written for {done}/{len(patients)} patients")
     if patients and done == 0:
@@ -181,6 +214,7 @@ def process_dataset(dataset_path: str, split: str = "training",
 def generate_pk_maps_for_dataset(dataset_path: str,
                                  splits: Optional[Sequence[str]] = None,
                                  cfg: Optional[PKConfig] = None,
+                                 enhanced: bool = False, debug: bool = False,
                                  device="cuda", num_shards: int = 1,
                                  shard_index: int = 0) -> Dict[str, str]:
     """All splits (ref:699-722); the trainer's --generate-pk-maps calls it
@@ -189,9 +223,46 @@ def generate_pk_maps_for_dataset(dataset_path: str,
     out = {}
     for split in splits:
         print(f"generating PK maps for {split}...")
-        process_dataset(dataset_path, split, cfg, device=device,
-                        num_shards=num_shards, shard_index=shard_index)
+        process_dataset(dataset_path, split, cfg, enhanced=enhanced,
+                        debug=debug, device=device, num_shards=num_shards,
+                        shard_index=shard_index)
         out[split] = os.path.join(dataset_path, "seg", split, "pk_maps")
+    return out
+
+
+def compare_aif_for_dataset(dataset_path: str,
+                            splits: Optional[Sequence[str]] = None,
+                            cfg: Optional[PKConfig] = None, device="cuda",
+                            num_shards: int = 1,
+                            shard_index: int = 0) -> Dict[str, str]:
+    """Each patient volume fitted (enhanced) with the population, modified
+    and auto AIFs, each method's maps and the pairwise difference renders
+    under `<root>/seg/<split>/pk_aif_comparison/<patient>/`
+    (ref:test_pk_fitting.py:709-887 test_aif_methods). Returns split ->
+    that directory."""
+    from stf_unet_tpu_torch.pk.enhanced import compare_aif_methods
+
+    cfg = cfg or PKConfig()
+    splits = splits or ["training", "val", "test"]
+    out = {}
+    for split in splits:
+        images_dir, _, patients = _split_patients(dataset_path, split,
+                                                  num_shards, shard_index)
+        output_base = os.path.join(dataset_path, "seg", split,
+                                   "pk_aif_comparison")
+        print(f"{split}: AIF comparison over {len(patients)} patients"
+              + (f" (shard {shard_index}/{num_shards})"
+                 if num_shards > 1 else ""))
+        for patient in patients:
+            frames = _load_patient_frames(os.path.join(images_dir, patient))
+            if frames is None:
+                continue
+            compare_aif_methods(frames, cfg,
+                                os.path.join(output_base, patient),
+                                device=device)
+            print(f"AIF comparison for {patient} -> "
+                  f"{os.path.join(output_base, patient)}")
+        out[split] = output_base
     return out
 
 
@@ -213,21 +284,29 @@ def main(argv=None):
                     help="which patient shard this process fits")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device; 'cpu' only when asked for")
-    ap.add_argument("--enhanced", action="store_true", help=_UNPORTED)
-    ap.add_argument("--compare-aif", action="store_true", help=_UNPORTED)
-    ap.add_argument("--debug", action="store_true", help=_UNPORTED)
+    ap.add_argument("--enhanced", action="store_true",
+                    help="Otsu/bilateral preprocessing + param-map "
+                         "postprocessing (ref:test_pk_fitting.py fork)")
+    ap.add_argument("--compare-aif", action="store_true",
+                    help="render per-patient AIF-method comparison maps "
+                         "instead of pk_maps (ref:test_aif_methods)")
+    ap.add_argument("--debug", action="store_true",
+                    help="write diagnostic renders (sample curves, loss "
+                         "curve, AIF maps) under <patient>/debug/")
     ap.add_argument("--data-parallel", type=int, default=1, help=_UNPORTED)
     args = ap.parse_args(argv)
-    for flag, on in (("--enhanced", args.enhanced),
-                     ("--compare-aif", args.compare_aif),
-                     ("--debug", args.debug),
-                     ("--data-parallel", args.data_parallel != 1)):
-        if on:
-            ap.error(f"{flag} {_UNPORTED}")
+    if args.data_parallel != 1:
+        ap.error(f"--data-parallel {_UNPORTED}")
     cfg = PKConfig(aif_method=args.aif_method, solver=args.solver)
+    splits = args.splits.split(",")
+    if args.compare_aif:
+        return compare_aif_for_dataset(
+            args.dataset_path, splits, cfg, device=args.device,
+            num_shards=args.num_shards, shard_index=args.shard_index)
     return generate_pk_maps_for_dataset(
-        args.dataset_path, args.splits.split(","), cfg, device=args.device,
-        num_shards=args.num_shards, shard_index=args.shard_index)
+        args.dataset_path, splits, cfg, enhanced=args.enhanced,
+        debug=args.debug, device=args.device, num_shards=args.num_shards,
+        shard_index=args.shard_index)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@
     pads to bound its compile count; here it keeps the kernels' row counts
     on the few shapes that warmup ran and PERF.md measured.
   * The forward runs eagerly under torch.inference_mode(); there is no
-    compile step. Device work is serialized by one lock per engine.
+    compile step. Device work is serialized by one lock per engine, which
+    a weight reload also takes (serve/http.SegmentationServer.reload).
+  * With a TiledPredictor, inputs whose geometry is not the tile's are
+    segmented at native resolution with sliding-window tiles.
 """
 
 from __future__ import annotations
@@ -31,12 +34,15 @@ class InferenceEngine:
     """Argmax-segmentation forward over raw uint8 inputs.
 
     predict() takes [B, T, h, w, 1] uint8 and returns int32 masks [B, h, w].
-    `model` is an eval-mode module on `device`.
+    `model` is an eval-mode module on `device`. `tiled`: an optional
+    serve.tiled.TiledPredictor over the same model; inputs whose (h, w)
+    is not its tile's go through it, one volume at a time.
     """
 
     def __init__(self, model: nn.Module, mean: float, std: float,
-                 max_batch: int = 8, device="cuda"):
+                 max_batch: int = 8, device="cuda", tiled=None):
         self.model = model
+        self.tiled = tiled
         self.mean = float(mean)
         self.std = float(std)
         self.max_batch = int(max_batch)
@@ -58,6 +64,13 @@ class InferenceEngine:
         """images uint8 [B, T, h, w, 1] -> masks int32 [B, h, w];
         return_probs=True also returns float16 softmax probabilities
         [B, h, w, C] from the same forward."""
+        if (self.tiled is not None
+                and images.shape[2:4] != (self.tiled.tile, self.tiled.tile)):
+            if return_probs:
+                raise ValueError("return_probs is unavailable on the tiled "
+                                 "path (the tile blend emits argmax masks)")
+            with self._lock:
+                return np.stack([self.tiled.predict(img) for img in images])
         n = images.shape[0]
         b = self._bucket(n)
         if n < b:  # pad by replicating row 0; sliced off below

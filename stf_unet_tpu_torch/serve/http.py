@@ -14,8 +14,14 @@ Endpoints:
                             ?full_size=1 nearest-upsamples the mask back to
                             the input H/W. ?probs=1 returns an npz with the
                             mask AND float16 softmax probabilities (direct
-                            engine call, skips the dynamic batcher).
-  POST /v1/reload        -> 501: weight reload is not ported yet.
+                            engine call, skips the dynamic batcher; not
+                            in tiled mode).
+  POST /v1/reload        -> re-read the checkpoint and swap the weights in
+                            place under the engine's lock (in-flight batches
+                            finish on the old weights); 409 when the
+                            checkpoint no longer matches the served model,
+                            when it cannot be read, and when the server has
+                            no reloader.
 
 ThreadingHTTPServer accepts concurrent clients; every request blocks on
 the DynamicBatcher, which owns the device.
@@ -29,7 +35,7 @@ import threading
 import time
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
@@ -71,7 +77,7 @@ class ServerStats:
             }
 
 
-def _upsample_nearest(arr: np.ndarray, h: int, w: int) -> np.ndarray:
+def upsample_nearest(arr: np.ndarray, h: int, w: int) -> np.ndarray:
     rows = _nearest_indices(arr.shape[0], h)
     cols = _nearest_indices(arr.shape[1], w)
     return arr[rows][:, cols]
@@ -88,12 +94,25 @@ class SegmentationServer:
     def __init__(self, model: nn.Module, data_cfg: DataConfig, *,
                  model_name: str = "", host: str = "127.0.0.1",
                  port: int = 0, max_batch: int = 8, window_ms: float = 5.0,
-                 device="cuda", infer_timeout_s: float = 300.0):
+                 device="cuda", infer_timeout_s: float = 300.0,
+                 tiled=None, weights: Optional[nn.Module] = None,
+                 reloader: Optional[Callable[[], Tuple[dict, dict]]] = None):
+        """tiled: a serve.tiled.TiledPredictor over `model`: volumes ship
+        at native resolution and those off its tile geometry are tiled.
+        weights: the module whose state_dict a reload replaces (`model`
+        itself unless that wraps it, as ops/tta.FlipTTAModel does).
+        reloader: () -> (state_dict, info dict), re-reading the checkpoint;
+        enables POST /v1/reload."""
         self.data_cfg = data_cfg
         self.model_name = model_name
         self.infer_timeout_s = float(infer_timeout_s)
+        self.tiled = tiled
+        self.weights = model if weights is None else weights
+        self._reloader = reloader
+        self._reload_lock = threading.Lock()
         self.engine = InferenceEngine(model, data_cfg.mean, data_cfg.std,
-                                      max_batch=max_batch, device=device)
+                                      max_batch=max_batch, device=device,
+                                      tiled=tiled)
         self.batcher = DynamicBatcher(self.engine, max_batch=max_batch,
                                       window_ms=window_ms)
         self.stats = ServerStats()
@@ -117,10 +136,34 @@ class SegmentationServer:
             self._thread.join(timeout=5)
         self.batcher.close()
 
+    def reload(self) -> dict:
+        """Re-read the checkpoint and swap the served weights in place,
+        under the engine's lock: a batch runs wholly on the old weights
+        or wholly on the new. A checkpoint whose keys or shapes differ
+        from the served model's is refused (an architecture change needs
+        a restart) and the old weights keep serving."""
+        if self._reloader is None:
+            raise RuntimeError("reload not configured for this server")
+        with self._reload_lock:
+            state, info = self._reloader()
+            served = self.weights.state_dict()
+            if {k: tuple(v.shape) for k, v in state.items()} != {
+                    k: tuple(v.shape) for k, v in served.items()}:
+                raise ValueError(
+                    "checkpoint on disk no longer matches the serving "
+                    "model (key/shape change) - restart the server")
+            with self.engine._lock:
+                self.weights.load_state_dict(state, strict=True)
+            return info
+
     def preprocess(self, frames: np.ndarray
                    ) -> Tuple[np.ndarray, Tuple[int, int]]:
         """uint8 [T, H, W] -> ([T, h'', w'', 1] stride-padded short-edge-
-        resized uint8, (h', w') the unpadded resized size)."""
+        resized uint8, (h', w') the unpadded resized size). In tiled mode
+        the volume ships at native resolution, untouched: the engine's
+        TiledPredictor owns the geometry."""
+        if self.tiled is not None:
+            return frames[..., None], frames.shape[1:]
         dummy_mask = np.zeros(frames.shape[1:], np.uint8)
         image, _ = eval_preprocess(frames, dummy_mask, self.data_cfg,
                                    raw=True)
@@ -135,19 +178,22 @@ class SegmentationServer:
         image, (h, w) = self.preprocess(frames)
         mask = self.batcher.infer(image, timeout=self.infer_timeout_s)[:h, :w]
         if full_size and mask.shape != frames.shape[1:]:
-            mask = _upsample_nearest(mask, *frames.shape[1:])
+            mask = upsample_nearest(mask, *frames.shape[1:])
         return mask
 
     def segment_probs(self, frames: np.ndarray, full_size: bool = False):
         """(mask, float16 softmax probs [h, w, C]) for ?probs=1 requests;
         calls the engine directly (probs requests are rare analysis
         traffic and skip the batcher)."""
+        if self.tiled is not None:
+            raise ValueError("probabilities are unavailable in tiled mode "
+                             "(the tile blend emits argmax masks)")
         image, (h, w) = self.preprocess(frames)
         masks, probs = self.engine.predict(image[None], return_probs=True)
         mask, prob = masks[0][:h, :w], probs[0][:h, :w]
         if full_size and mask.shape != frames.shape[1:]:
-            mask = _upsample_nearest(mask, *frames.shape[1:])
-            prob = _upsample_nearest(prob, *frames.shape[1:])
+            mask = upsample_nearest(mask, *frames.shape[1:])
+            prob = upsample_nearest(prob, *frames.shape[1:])
         return mask, prob
 
 
@@ -217,8 +263,12 @@ def _make_handler(server: SegmentationServer):
             length = int(self.headers.get("Content-Length", "0"))
             payload = self.rfile.read(length) if length else b""
             if url.path == "/v1/reload":
-                self._send_json(501, {"error": "weight reload is not ported "
-                                               "yet; restart the server"})
+                try:
+                    info = server.reload()
+                except Exception as e:
+                    self._send_json(409, {"error": str(e)})
+                    return
+                self._send_json(200, {"reloaded": True, **info})
                 return
             if url.path != "/v1/segment":
                 self._send_json(404, {"error": "not found"})

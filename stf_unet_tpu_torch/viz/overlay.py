@@ -4,7 +4,8 @@ ref:test.py:52-82).
 
 Alpha-blends a colored mask onto a grayscale slice with numpy and writes
 it with PIL. The contour-only border needs cv2, which the port does not
-use: `border_only=True` raises, as the JAX module does without cv2.
+use: `border_only=True` raises, as the JAX module does without cv2, and
+render_pk_overlay takes the JAX module's own fallback for that case.
 """
 
 from __future__ import annotations
@@ -65,3 +66,18 @@ def save_overlay(pred_mask: np.ndarray, raw_input: np.ndarray, save_dir: str,
     path = os.path.join(save_dir, f"{prefix}_{tag}.png")
     Image.fromarray(merged).save(path)
     return path
+
+
+def render_pk_overlay(base: np.ndarray, ktrans: np.ndarray,
+                      pred_mask: np.ndarray) -> np.ndarray:
+    """The combined analysis render of cli/pipeline and cli/predict
+    --pk-fit: the Ktrans heat (red, alpha 0.35) and the predicted tumor
+    (green, alpha 0.4: the JAX function's fallback where cv2's contours
+    are unavailable) on the grayscale base frame. All inputs [H, W];
+    pred_mask in {0, 1}. -> uint8 [H, W, 3]."""
+    kmax = float(np.max(ktrans))
+    heat = ((np.clip(ktrans / kmax, 0, 1) * 255).astype(np.uint8)
+            if kmax > 0 else np.zeros_like(base, np.uint8))
+    over = merge_images(base, heat, (255, 0, 0), alpha=0.35)
+    pred255 = (np.asarray(pred_mask) > 0).astype(np.uint8) * 255
+    return merge_images(over, pred255, (0, 255, 0), alpha=0.4)

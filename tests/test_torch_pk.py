@@ -367,13 +367,64 @@ def test_patient_shards_partition_the_split(tmp_path):
                               num_shards=2, shard_index=2)
 
 
-@pytest.mark.parametrize("flag", [["--enhanced"], ["--compare-aif"],
-                                  ["--debug"], ["--data-parallel", "2"]])
+@pytest.mark.parametrize("flag", [["--data-parallel", "2"]])
 def test_maps_cli_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
         pmaps.main(["/nonexistent", *flag])
     err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "PK leftovers" in err
+    assert "ROADMAP.md" in err and "data parallelism" in err
+
+
+def _files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+@pytest.mark.parametrize("flag", ["--enhanced", "--compare-aif", "--debug"])
+def test_maps_cli_flag_now_runs(flag, tmp_path):
+    """Each flag the CLI used to refuse, run on the CPU beside the JAX
+    CLI on copies of one SUB tree: the same artifact files and finite
+    maps. --debug (Adam) holds every raw map within FIT_TOL of JAX's on
+    FIT_SHARE of its pixels; the enhanced fits of --enhanced and
+    --compare-aif are ill-conditioned on this volume (JAX against its own
+    run on frames with 1e-7 of noise keeps 19 % of the voxels at 1e-4),
+    so they are held to JAX's own spread
+    (tests/test_torch_pk_enhanced.py)."""
+    from test_torch_pk_enhanced import (assert_within_jax_spread,
+                                        jax_noisy_fit)
+
+    root = make_synthetic_breadm(str(tmp_path / "port"), size=32,
+                                 time_steps=8, splits=("val",),
+                                 patients_per_split=1, slices_per_patient=1,
+                                 sequence_prefix="SUB", seed=2)
+    jax_root = str(tmp_path / "jax")
+    shutil.copytree(root, jax_root)
+    argv = ["--splits", "val", "--solver", "adam" if flag == "--debug"
+            else "lm", flag]
+    got = pmaps.main([root, *argv, "--device", "cpu"])
+    jmaps.main([jax_root, *argv])
+    sub = "pk_aif_comparison" if flag == "--compare-aif" else "pk_maps"
+    assert got == {"val": os.path.join(root, "seg", "val", sub)}
+    got_dir = os.path.join(root, "seg", "val", sub, "P000")
+    want_dir = os.path.join(jax_root, "seg", "val", sub, "P000")
+    assert _files(got_dir) == _files(want_dir)
+    methods = (("population", "modified", "auto") if flag == "--compare-aif"
+               else ("",))
+    frames = pmaps._load_patient_frames(
+        os.path.join(root, "seg", "val", "images", "P000"))
+    for method in methods:
+        g, w = (np.stack([np.load(os.path.join(d, method, f"{n}_raw.npy"))
+                          for n in pmaps.PARAM_NAMES]).reshape(3, -1).T
+                for d in (got_dir, want_dir))
+        assert g.shape == (32 * 32, 3) and np.isfinite(g).all()
+        if flag == "--debug":
+            assert _share_within(g, w) >= FIT_SHARE
+            continue
+        spread = jax_noisy_fit(frames, JaxPKConfig(
+            aif_method=method or "population")).reshape(3, -1).T
+        assert_within_jax_spread(g, w, spread, method)
+    if flag == "--debug":
+        assert "debug/training_loss.png" in _files(got_dir)
 
 
 def test_maps_cli_runs_on_the_cpu_when_asked(tmp_path):

@@ -110,13 +110,19 @@ def test_concurrent_requests_batch(client, server):
     assert server.batcher.total_batches >= 2
 
 
-def test_errors(server, client):
+def test_errors(server, client, weights):
     with pytest.raises(ServerError) as e:
         client._request("/v1/segment", b"not an npz")
     assert e.value.code == 400
-    with pytest.raises(ServerError) as e:
-        client.reload()
-    assert e.value.code == 501
+    # a reload that cannot read its checkpoint: 409, as the JAX server
+    os.replace(weights, weights + ".away")
+    try:
+        with pytest.raises(ServerError) as e:
+            client.reload()
+    finally:
+        os.replace(weights + ".away", weights)
+    assert e.value.code == 409
+    assert client.reload()["reloaded"] is True
     with pytest.raises(ServerError) as e:
         client._request("/v1/segment?probs=1&format=png",
                         client._payload(_frames()))

@@ -221,11 +221,17 @@ PK_MODULES = (
     "pk/__init__.py", "pk/aif.py", "pk/fit.py", "pk/maps.py", "pk/tofts.py",
     "ops/kernels/tofts.py",
 )
+# Modules of the labels-free deployment path.
+DEPLOY_MODULES = (
+    "pk/enhanced.py", "pk/debug.py", "cli/predict.py", "cli/pipeline.py",
+    "cli/serve.py", "serve/http.py", "serve/engine.py",
+)
 
 
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "stf_unet_tpu_torch").rglob("*.py"))
-    for rel in TRAINING_MODULES + TEST_MODULES + PK_MODULES:
+    for rel in (TRAINING_MODULES + TEST_MODULES + PK_MODULES
+                + DEPLOY_MODULES):
         assert REPO / "stf_unet_tpu_torch" / rel in files, rel
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 40
