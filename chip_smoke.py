@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the repository root
 
 Phases, each of which fails the run (non-zero exit, no result line):
-  1. card: print the GPU's name and power limit; build the five CUDA
+  1. card: print the GPU's name and power limit; build the six CUDA
      kernels from csrc/ with nvcc, in parallel, and print the build seconds.
   2. kernels: each kernel against its plain PyTorch version on the card.
      K1 forward and K3 at every row count the serving and training paths
@@ -42,7 +42,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      F.grid_sample's device time per call over 1,000 calls with rule 2's
      verdict, K4's over 500 calls, the serving routing's device times;
      and one K1 forward line's event times taken again after it
-     (profiler_aftereffect).
+     (profiler_aftereffect). Then K5 (the int8 convolution's operand
+     pass, ops/kernels/quant.py) at every conv call of one bf16 B=8,
+     crop-224 forward of the full-width STF-LSTM-UNet, its PK-maps
+     variant and the UNet, bit-equal to its plain twin, with the int32
+     accumulators of torch._int_mm on its patches equal to an f64
+     F.conv2d of the same integers, and kernel, plain and library-route
+     times and the byte bound, summed per forward.
   3. serving: a seeded full-width STF-LSTM-UNet (ResNet-34, pixel LSTMs at
      C=64..512, T=8, crop 224, bf16) written as a reference-layout .pth,
      served through cli/serve.build_server on 127.0.0.1, answering
@@ -121,6 +127,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
      per request); POST /v1/reload after phase 15's checkpoint replaces
      the best (the next answer is the new weights'), and 409 for a
      checkpoint of another architecture; K1 and K3 launched.
+ 20. int8: `cli.quantize --threshold-sweep` (bf16) on the best
+     checkpoints of phases 6 and 9 (48 and 19 convs quantized, float and
+     int8 dice, the delta, the operating points; K5 launched) and
+     `--no-eval` on phase 15's; bf16 and int8 forwards of both at B=8 and
+     16 (CUDA events, bf16 / int8 / int8 / bf16) and a torch.profiler
+     split of the int8 forward at B=8 (K5, the int8 GEMM, the dequant
+     epilogue, the rest); a server with --model-dir --dtype int8 --tta
+     --tiled answering 4 requests at 224^2 and 4 at 256^2, its masks equal
+     to the direct quantized forward's and their share equal to a bf16
+     server's, reloaded with phase 15's checkpoint and its scales (200,
+     the new weights' masks) and refused without scales (409); K1, K3
+     and K5 launched.
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -1411,12 +1429,13 @@ def counters():
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x import lstm_last_x
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x_bwd import (
         lstm_last_x_bwd)
+    from stf_unet_tpu_torch.ops.kernels.quant import quantize_patches
     from stf_unet_tpu_torch.ops.kernels.tofts import tofts_sums
     from stf_unet_tpu_torch.ops.kernels.warp import warp
 
     return {"lstm_last_x": lstm_last_x, "lstm_last": lstm_last,
             "lstm_last_x_bwd": lstm_last_x_bwd, "warp": warp,
-            "tofts_sums": tofts_sums}
+            "tofts_sums": tofts_sums, "quant_patches": quantize_patches}
 
 
 def reset_counts() -> dict:
@@ -2751,6 +2770,466 @@ def serve_dir_phase(weights: str, newer: str, pk_best: str):
     return launches
 
 
+# K5, the int8 convolution's operand pass (ops/kernels/quant.py), at every
+# conv call of one bf16 B=8, crop-224 forward of each full-width model:
+# STF-LSTM-UNet, its PK-maps variant (the 4-channel stem, pk_fusion) and
+# the UNet (base_c 64); bit-equal to its plain twin, and the int32
+# accumulators of the same patches (torch._int_mm against random int8
+# weights) equal to an f64 F.conv2d of the same integers on the first
+# sample, rounded (exact: |acc| < 2^53).
+QUANT_BATCH = 8
+QUANT_MODELS = ("stflstm", "stflstm_pk", "unet")
+
+
+def conv_calls(device):
+    """{model: [(x, (kernel, stride, padding, out channels), calls)]}: the
+    input of each distinct conv call (input shape and geometry) of one
+    bf16 B=8 forward of each full-width model (seeded weights), with the
+    number of calls that share it."""
+    import torch
+
+    from stf_unet_tpu_torch.core.config import ModelConfig
+    from stf_unet_tpu_torch.models.registry import (create_model,
+                                                     preprocess_input)
+    from stf_unet_tpu_torch.ops import quant
+
+    out = {}
+    for label in QUANT_MODELS:
+        cfg = ModelConfig(model=label.split("_")[0], time_steps=T_STEPS,
+                          use_pk_maps=label.endswith("_pk"))
+        torch.manual_seed(0)
+        model = create_model(cfg, dtype=torch.bfloat16).eval().to(device)
+        planes = T_STEPS + (cfg.pk_channels if cfg.use_pk_maps else 0)
+        gen = torch.Generator(device=device).manual_seed(1)
+        x = torch.randn((QUANT_BATCH, planes, CROP, CROP, 1), generator=gen,
+                        device=device)
+        seen = {}
+
+        def record(mod, args):
+            geom = (tuple(mod.kernel_size), tuple(mod.stride),
+                    tuple(mod.padding), mod.out_channels)
+            key = (tuple(args[0].shape), geom)
+            if key in seen:
+                seen[key][2] += 1
+            else:
+                seen[key] = [args[0].clone(), geom, 1]
+
+        handles = [m.register_forward_pre_hook(record)
+                   for m in quant.conv_modules(model).values()]
+        with torch.inference_mode():
+            model(preprocess_input(x, model))
+        for h in handles:
+            h.remove()
+        out[label] = [tuple(v) for v in seen.values()]
+        del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def library_patches(x, scale, kernel, stride, padding, kp):
+    """The nearest library route to K5: quantize, F.unfold on the
+    quantized bf16 tensor (integers up to 127, exact in bf16),
+    .to(torch.int8) and the K pad."""
+    import torch
+    import torch.nn.functional as F
+
+    from stf_unet_tpu_torch.ops.kernels.quant import quantize_activation
+
+    cols = F.unfold(quantize_activation(x, scale).to(torch.bfloat16),
+                    kernel, padding=padding, stride=stride)
+    mat = cols.transpose(1, 2).reshape(-1, cols.shape[1]).to(torch.int8)
+    return F.pad(mat, (0, kp - mat.shape[1]))
+
+
+def quant_phase(device, quick: bool):
+    """K5 against its plain twin and the GEMM's accumulators against f64
+    at every conv call of the three models (conv_calls); with timings of
+    kernel, plain twin and library route (CUDA events) and the byte bound
+    per distinct call, summed over each model's forward. Returns the
+    kernels-line entry (one STF-LSTM-UNet B=8 forward's sums)."""
+    import torch
+    import torch.nn.functional as F
+
+    from stf_unet_tpu_torch.ops import quant
+    from stf_unet_tpu_torch.ops.kernels.quant import (conv_out_size, padded,
+                                                      quantize_activation,
+                                                      quantize_patches,
+                                                      quantize_patches_plain)
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    forwards = {}
+    for label, calls in conv_calls(device).items():
+        fwd = forwards.setdefault(label, {
+            "convs": 0, "distinct": len(calls), "ms": 0.0, "plain_ms": 0.0,
+            "library_ms": 0.0, "bound_ms": 0.0})
+        for x, (kernel, stride, padding, cout), count in calls:
+            n, c, h, w = x.shape
+            ho, wo = conv_out_size(h, w, kernel, stride, padding)
+            kp = padded(c * kernel[0] * kernel[1])
+            m = n * ho * wo
+            with torch.inference_mode():
+                scale = quant.activation_scale(x.abs().amax())
+                args = (x, scale, kernel, stride, padding, kp)
+                got = quantize_patches(*args)
+                want = quantize_patches_plain(*args)
+                torch.cuda.synchronize()
+                err = (got.int() - want.int()).abs().max().item()
+                # the accumulators on the first sample (its T frames in
+                # the STF models' folded batch)
+                first = x[:T_STEPS if label.startswith("stflstm") else 1]
+                wq = torch.randint(-127, 128, (cout, c, *kernel),
+                                   generator=gen, device=device,
+                                   dtype=torch.int8)
+                acc = torch._int_mm(quantize_patches(
+                    first, scale, kernel, stride, padding, kp),
+                    quant.pack_weights(wq).t())[:, :cout]
+                ref = F.conv2d(quantize_activation(first, scale).double(),
+                               wq.double(), stride=stride, padding=padding)
+                acc_equal = torch.equal(
+                    acc.double(), ref.permute(0, 2, 3, 1).reshape(
+                        -1, cout).round())
+            line = {"kernel": "quant_patches", "model": label,
+                    "x": list(x.shape), "dtype": "bf16", "kernel_size":
+                    list(kernel), "stride": list(stride), "padding":
+                    list(padding), "calls": count, "M": m, "Kp": kp,
+                    "max_abs_err": err, "acc_equal_f64": acc_equal}
+            check(err == 0, f"quant_patches {label} {line['x']} {kernel} "
+                            f"s{stride}: differs from the plain twin by "
+                            f"{err}")
+            check(acc_equal, f"int8 GEMM {label} {line['x']} {kernel}: "
+                             f"accumulators differ from the f64 conv")
+            fwd["convs"] += count
+            if not quick:
+                nbytes = x.numel() * x.element_size() + m * kp
+                bms, by = bound_ms(nbytes, 0.0, "bf16")
+                with torch.inference_mode():
+                    line.update(
+                        kernel_ms=cuda_ms(lambda: quantize_patches(*args),
+                                          iters=10),
+                        plain_ms=cuda_ms(
+                            lambda: quantize_patches_plain(*args), iters=3),
+                        library_ms=cuda_ms(
+                            lambda: library_patches(*args), iters=3),
+                        bound_us=bms * 1e3, bound_by=by)
+                for key in ("plain_ms", "library_ms"):
+                    fwd[key] += count * line[key]
+                fwd["ms"] += count * line["kernel_ms"]
+                fwd["bound_ms"] += count * bms
+            print(json.dumps(line), flush=True)
+            del got, want
+        torch.cuda.empty_cache()
+    print(json.dumps({"quant_patches_per_forward": {
+        "batch": QUANT_BATCH, "crop": CROP, "forwards": forwards}}),
+        flush=True)
+    stf = forwards["stflstm"]
+    return {"max_abs_err": 0, "ms": stf["ms"] if not quick else None,
+            "plain_ms": stf["plain_ms"], "bound_ms": stf["bound_ms"],
+            "bound_by": "bytes", "library_ms": stf["library_ms"],
+            "shapes": [{"model": label, "B": QUANT_BATCH, "crop": CROP,
+                        "convs": f["convs"], "distinct": f["distinct"]}
+                       for label, f in forwards.items()],
+            "per_forward": forwards}
+
+
+# Phase 20, int8: cli.quantize on phase 6's and phase 9's best checkpoints;
+# bf16 and int8 forwards of both at INT8_BATCHES with the int8 forward's
+# device split; a server with --dtype int8 --tta --tiled answering
+# INT8_REQUESTS requests at 224^2 and at 256^2 (masks equal to the direct
+# quantized forward's; their share equal to a bf16 server's), reloaded
+# with a checkpoint that has scales and refused one without.
+INT8_CALIB_SAMPLES = 16
+INT8_BATCHES = (8, 16)
+INT8_REQUESTS = 4
+INT8_CONVS = {"stflstm": 48, "unet": 19}
+
+
+def int8_split(qmodel, x) -> dict:
+    """torch.profiler view of 3 int8 forwards qmodel(x), with each
+    quantized conv's call in a record_function range "int8_conv" (forward
+    pre-hooks / hooks on the convs): per forward, K5's device ms (by
+    kernel name), the int8 GEMM's (aten::_int_mm), the dequant epilogue's
+    (the rest of the conv ranges) and the rest of the forward."""
+    import torch
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    names = set(qmodel.paths)
+    convs = [m for name, m in qmodel.model.named_modules() if name in names]
+    stack = []
+
+    def enter(_mod, _args):
+        rf = record_function("int8_conv")
+        rf.__enter__()
+        stack.append(rf)
+
+    def leave(_mod, _args, _out):
+        stack.pop().__exit__(None, None, None)
+
+    handles = ([m.register_forward_pre_hook(enter) for m in convs]
+               + [m.register_forward_hook(leave) for m in convs])
+    try:
+        qmodel(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                qmodel(x)
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    cpu, cuda = (torch.autograd.DeviceType.CPU,
+                 torch.autograd.DeviceType.CUDA)
+    # the device-side copy of each range (a GPU annotation) is no kernel
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == cuda and e.key != "int8_conv"]
+    busy = sum(dev_ms(e) for e in kernels) / 3
+    k5 = sum(dev_ms(e) for e in kernels if "quant_patches" in e.key) / 3
+
+    def under(evt):  # (name, us) of the kernels launched in evt's subtree
+        out = [(k.name, k.duration) for k in getattr(evt, "kernels", [])]
+        for child in evt.cpu_children:
+            out += under(child)
+        return out
+
+    events = [e for e in prof.events() if e.device_type == cpu]
+    in_ranges = [k for e in events if e.name == "int8_conv"
+                 for k in under(e)]
+    gemm = sum(d for e in events if e.name == "aten::_int_mm"
+               for _, d in under(e)) / 3e3
+    # the kernel's launch goes through ctypes, under no operator: count
+    # it by name whether or not the profiler put it inside a range
+    epilogue = (sum(d for name, d in in_ranges
+                    if "quant_patches" not in name) / 3e3 - gemm)
+    top = sorted(kernels, key=dev_ms, reverse=True)[:8]
+    measured = bool(busy and in_ranges)
+    return {"kernel_ms": busy or "not measured",
+            "quant_patches_ms": k5, "int_mm_ms": gemm,
+            "epilogue_ms": epilogue if measured else "not measured",
+            "rest_ms": (busy - k5 - gemm - epilogue) if measured
+            else "not measured",
+            "top_kernels": [{"name": e.key[:90], "calls": e.count / 3,
+                             "ms": dev_ms(e) / 3} for e in top]}
+
+
+def int8_forward_phase(runs, device: str = "cuda") -> dict:
+    """bf16 and int8 forwards of each (model, save directory) of `runs`
+    (the best checkpoint and its scales), CUDA-event ms per batch in the
+    order bf16, int8, int8, bf16 at each of INT8_BATCHES; then, after
+    every event timing (profiled_pass), the bf16 forward's kernel time and
+    the int8 forward's device split at B=8 (int8_split)."""
+    import torch
+
+    from stf_unet_tpu_torch.cli.common import (checkpoint_path,
+                                               restore_for_inference)
+    from stf_unet_tpu_torch.data.transforms import normalize
+    from stf_unet_tpu_torch.models.registry import preprocess_input
+    from stf_unet_tpu_torch.ops import quant
+
+    out, profiled = {}, []
+    for model_name, weights in runs:
+        path = checkpoint_path(weights, model_name)
+        model, data_cfg, _, _ = restore_for_inference(
+            model_name, path, use_subtraction=True, dtype="bf16",
+            device=device)
+        qmodel = quant.QuantizedModel(model, quant.load_scales(
+            quant.scales_path_for(path)))
+        line = out[model_name] = {}
+        for b in INT8_BATCHES:
+            gen = torch.Generator(device=device).manual_seed(b)
+            raw = torch.randint(0, 256, (b, T_STEPS, CROP, CROP, 1),
+                                generator=gen, device=device)
+            x = preprocess_input(normalize(raw, data_cfg.mean,
+                                           data_cfg.std), model)
+            with torch.inference_mode():
+                times = [cuda_ms(lambda m=m: m(x), iters=10, warmup=2)
+                         for m in (model, qmodel, qmodel, model)]
+            line[f"B{b}"] = {"bf16_ms": [times[0], times[3]],
+                             "int8_ms": [times[1], times[2]],
+                             "int8_over_bf16": (times[1] + times[2])
+                             / (times[0] + times[3])}
+            if b == 8:
+                profiled.append((line, model, qmodel, x))
+    for line, model, qmodel, x in profiled:
+        with torch.inference_mode():
+            line["bf16_kernel_ms_b8"] = profiled_ms(lambda: model(x), 3)
+            line["int8_split_b8"] = int8_split(qmodel, x)
+    del profiled
+    torch.cuda.empty_cache()
+    print(json.dumps({"int8_forward": out}), flush=True)
+    return out
+
+
+def int8_serve(stf_weights: str, newer: str, device: str = "cuda"):
+    """cli/serve.build_server with --model-dir --dtype int8 --tta --tiled
+    --warmup-geometries 256x256: INT8_REQUESTS requests at 224^2 (the
+    batched path) and at 256^2 (the tiles), each answer equal to the
+    engine's direct quantized forward on the same frames, and its share of
+    pixels equal to a bf16 server's (same flags); then POST /v1/reload
+    after `newer` (another checkpoint with its scales) replaces the best:
+    200 and the new weights' masks; without its scales: 409 and the
+    served weights stay. Returns (launch counts of the requests, the
+    result line)."""
+    import shutil
+
+    import torch
+
+    from stf_unet_tpu_torch.cli.common import load_reference_checkpoint
+    from stf_unet_tpu_torch.cli.serve import build_server, parse_args
+    from stf_unet_tpu_torch.ops import quant
+    from stf_unet_tpu_torch.serve.client import (SegmentationClient,
+                                                 ServerError)
+
+    flags = ["--model", "stflstm", "--model-dir", stf_weights,
+             "--use-subtraction", "--tta", "--tiled", "--warmup-geometries",
+             "256x256", "--port", "0", "--max-batch", "8", "--device",
+             device]
+    best = os.path.join(stf_weights, "stflstm_best_model.pth")
+    scales = quant.scales_path_for(best)
+    for path in (best, scales):
+        shutil.copy(path, path + ".kept")
+    t0 = time.perf_counter()
+    server = build_server(parse_args(flags + ["--dtype", "int8"]))
+    build_s = time.perf_counter() - t0
+    bf16 = build_server(parse_args(flags + ["--dtype", "bf16",
+                                            "--no-warmup"]))
+    bf16.batcher.close()
+    bf16.httpd.server_close()
+    rng = np.random.default_rng(5)
+    frames = {size: [rng.integers(0, 256, (T_STEPS, size, size),
+                                  dtype=np.uint8)
+                     for _ in range(INT8_REQUESTS)]
+              for size in (CROP, TRAIN_SRC)}
+
+    def direct(srv, f):
+        image, (h, w) = srv.preprocess(f)
+        return srv.engine.predict(image[None])[0][:h, :w]
+
+    server.start()
+    try:
+        client = SegmentationClient("http://%s:%d" % server.address,
+                                    timeout=300)
+        kernels = reset_counts()
+        ms, answers = {}, {}
+        for size, stack in frames.items():
+            t1 = time.perf_counter()
+            answers[size] = [client.segment(f) for f in stack]
+            ms[size] = (time.perf_counter() - t1) * 1e3 / len(stack)
+        torch.cuda.synchronize()
+        launches = _launches(kernels)
+        equal, share = {}, {}
+        for size, stack in frames.items():
+            equal[size] = all(np.array_equal(a, direct(server, f))
+                              for a, f in zip(answers[size], stack))
+            share[size] = float(np.mean([np.mean(a == direct(bf16, f))
+                                         for a, f in zip(answers[size],
+                                                         stack)]))
+            check(all(a.shape == (size, size) for a in answers[size]),
+                  f"int8 serve {size}: mask shapes")
+            check(equal[size], f"int8 serve {size}: an answer differs from "
+                               f"the direct quantized forward")
+        probe = frames[TRAIN_SRC][0]
+        before = client.segment(probe)
+        newer_scales = quant.scales_path_for(newer)
+        shutil.copy(newer, best)
+        shutil.copy(newer_scales, scales)
+        info = client.reload()
+        after = client.segment(probe)
+        new = load_reference_checkpoint(newer)[0]
+        swapped = all(torch.equal(v.cpu(), new[k]) for k, v in
+                      server.weights.model.state_dict().items())
+        check(swapped, "int8 reload did not load the new checkpoint")
+        check(bool(np.array_equal(after, direct(server, probe))),
+              "int8: the answer after reload is not the new weights' mask")
+        os.remove(scales)
+        try:
+            client.reload()
+            refused = None
+        except ServerError as e:
+            refused = e.code
+        check(refused == 409, f"int8 reload without scales: {refused}")
+        check(bool(np.array_equal(client.segment(probe), after)),
+              "int8: the served weights moved after a refused reload")
+        metrics = client.metrics()
+    finally:
+        server.stop()
+        for path in (best, scales):
+            shutil.move(path + ".kept", path)
+    check(launches["quant_patches"] > 0, "kernel quant_patches never "
+                                         "launched by the int8 server")
+    for name in ("lstm_last_x", "lstm_last"):
+        check(launches[name] > 0, f"kernel {name} never launched by the "
+                                  f"int8 server")
+    return launches, {
+        "build_and_warmup_s": build_s,
+        "ms_per_request_tta": ms[CROP],
+        "ms_per_request_tta_tiled_256": ms[TRAIN_SRC],
+        "equal_to_direct_int8": {str(k): v for k, v in equal.items()},
+        "share_equal_to_bf16_server": {str(k): v for k, v in share.items()},
+        "reload": {"info": info, "mask_changed":
+                   bool(not np.array_equal(before, after)),
+                   "refused_without_scales": refused},
+        "errors": metrics["errors"], "launches": launches}
+
+
+def int8_phase(data: str, stf_weights: str, unet_weights: str,
+               extras_weights: str, device: str = "cuda"):
+    """20. int8: `cli.quantize --threshold-sweep` (bf16) on the best
+    checkpoints of phases 6 and 9 (convs quantized, float / int8 dice,
+    the delta, the operating points; K5 launched), and `--no-eval` on
+    phase 15's; int8_forward_phase on both models; int8_serve. Returns the
+    launch counts of the quantize runs and the server's requests,
+    summed."""
+    import math
+
+    from stf_unet_tpu_torch.cli import quantize as quantize_cli
+
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in counters()}
+    runs = {}
+    for model, weights, extra in (
+            ("stflstm", stf_weights, ["--threshold-sweep"]),
+            ("unet", unet_weights, ["--threshold-sweep"]),
+            ("stflstm", extras_weights, ["--no-eval"])):
+        kernels = reset_counts()
+        t0 = time.perf_counter()
+        res = quantize_cli.main([
+            "--model", model, "--model-dir", weights, "--root", data,
+            "--use-subtraction", "--calib-samples", str(INT8_CALIB_SAMPLES),
+            "--batch-size", "8", "--dtype", "bf16", "--device", device,
+            *extra])
+        wall = time.perf_counter() - t0
+        launches = _launches(kernels)
+        for name, n in launches.items():
+            total[name] += n
+        check(res["num_convs"] == INT8_CONVS[model],
+              f"cli.quantize {model}: {res['num_convs']} convs quantized")
+        if "--no-eval" not in extra:
+            check(launches["quant_patches"] > 0, f"kernel quant_patches "
+                                                 f"never launched in "
+                                                 f"cli.quantize {model}")
+            check(all(math.isfinite(res[k]) for k in ("dice_float",
+                                                      "dice_int8")),
+                  f"cli.quantize {model}: dice {res}")
+            runs[model] = weights
+        print(json.dumps({"int8_quantize": {
+            "model": model, "weights": os.path.basename(weights),
+            "wall_s": wall, **{k: v for k, v in res.items()
+                               if k != "scales_path"},
+            "launches": launches}}), flush=True)
+    forwards = int8_forward_phase(list(runs.items()), device)
+    from stf_unet_tpu_torch.cli.common import checkpoint_path
+
+    launches, line = int8_serve(stf_weights, checkpoint_path(
+        extras_weights, "stflstm"), device)
+    for name, n in launches.items():
+        total[name] += n
+    print(json.dumps({"int8_serve": {
+        **line, "phase_wall_s": time.perf_counter() - t_phase}}),
+        flush=True)
+    return total, forwards
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2788,6 +3267,7 @@ def main() -> int:
     agg["lstm_last_x_bwd"] = lstm_bwd_phase(device, args.quick, jobs)
     agg["warp"] = warp_phase(device, args.quick, jobs)
     agg["tofts_sums"] = tofts_phase(device, args.quick, jobs)
+    agg["quant_patches"] = quant_phase(device, args.quick)
     if args.quick:
         print("quick: kernels build and agree with their plain versions")
         return 0
@@ -2840,6 +3320,14 @@ def main() -> int:
                 stf_weights, os.path.join(tmpdir, "weights_extras",
                                           "stflstm_latest_model.pth"),
                 best)}
+        torch.cuda.empty_cache()
+        # int8 post-training quantization: cli.quantize, the forwards,
+        # cli/serve --dtype int8
+        deploy["int8"], int8_forwards = int8_phase(
+            data, stf_weights, unet_weights,
+            os.path.join(tmpdir, "weights_extras"))
+    agg["quant_patches"]["device_ms"] = int8_forwards["stflstm"][
+        "int8_split_b8"]["quant_patches_ms"]
     pk_launches = {name: sum(run[name] for run in pk_runs)
                    for name in counters()}
 
@@ -2860,8 +3348,13 @@ def main() -> int:
         {"name": "tofts_sums", "route": "cuda",
          "source": "stf_unet_tpu_torch/csrc/tofts_sums.cu",
          "replaces": "stf_unet_tpu/ops/pallas/tofts_kernel.py:42"},
+        {"name": "quant_patches", "route": "cuda",
+         "source": "stf_unet_tpu_torch/csrc/quant_patches.cu",
+         "replaces": "stf_unet_tpu/ops/quant.py:86 (XLA int8 conv; no "
+                     "pallas_call)"},
     ]
-    dtypes = {"warp": "uint8 in, f32 out", "tofts_sums": "f32"}
+    dtypes = {"warp": "uint8 in, f32 out", "tofts_sums": "f32",
+              "quant_patches": "bf16 in, int8 out"}
     for k in kernels:
         a = agg[k["name"]]
         by_path = {"serve": serve_launches[k["name"]],
@@ -2878,7 +3371,8 @@ def main() -> int:
                  bound_by=a["bound_by"], library_ms=a["library_ms"],
                  shapes=a["shapes"], dtype=dtypes.get(k["name"], "bf16"))
         for extra in ("pk_shape", "extras", "tensor_cores", "device_ms",
-                      "library_device_ms", "host_us", "rule2_leave_alone"):
+                      "library_device_ms", "host_us", "rule2_leave_alone",
+                      "per_forward"):
             if extra in a:
                 k[extra] = a[extra]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,7 +5,7 @@ stf_unet_tpu/cli/serve.py).
 Usage: python -m stf_unet_tpu_torch.cli.serve --model-dir ./save_weights
        [--model stflstm|unet] [--use-subtraction] [--use-pk-maps]
        [--host 127.0.0.1] [--port 8421] [--max-batch 8]
-       [--batch-window-ms 5] [--dtype bf16|f32] [--crop-size 224]
+       [--batch-window-ms 5] [--dtype bf16|f32|int8] [--crop-size 224]
        [--tta] [--tiled [--tile-overlap 0.5] [--warmup-geometries HxW,..]]
        [--no-warmup] [--device cuda]
    or: ... --weights model.pth
@@ -20,7 +20,12 @@ JAX checkpoint), and reload re-reads that file. A PK checkpoint (trained
 with --use-pk-maps) takes requests of T + 3 planes: the frames, then the
 Ktrans, ve and vp maps. --tta serves the 4-orientation flip ensemble
 (ops/tta.py); --tiled segments volumes off the trained crop at native
-resolution with sliding-window tiles (serve/tiled.py).
+resolution with sliding-window tiles (serve/tiled.py). --dtype int8
+serves the int8 post-training quantized model (ops/quant.py): the convs
+in int8 with the scales `python -m stf_unet_tpu_torch.cli.quantize` wrote
+next to the served checkpoint (`<checkpoint>.quant_scales.json`), the
+rest in bf16; a reload re-reads the checkpoint and its scales and
+re-quantizes, and a checkpoint without scales is refused.
 
 Client: stf_unet_tpu_torch.serve.client.SegmentationClient.
 """
@@ -28,6 +33,7 @@ Client: stf_unet_tpu_torch.serve.client.SegmentationClient.
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import threading
 from typing import Optional, Sequence
@@ -41,8 +47,7 @@ from stf_unet_tpu_torch.serve.http import SegmentationServer
 
 # Flags of the JAX server whose features the port has not implemented
 # yet -> the ROADMAP.md item (§1) that brings them.
-UNPORTED = {"--dtype int8": "Serve features, 7.4 int8",
-            "--data-parallel": "data parallelism"}
+UNPORTED = {"--data-parallel": "data parallelism"}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -75,7 +80,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--dtype", type=str, default="bf16",
                    choices=sorted(DTYPES) + ["int8"],
                    help="compute dtype (parameters stay float32; logits "
-                        "are float32)")
+                        "are float32); int8: the convs in int8 with the "
+                        "checkpoint's calibrated scales, the rest bf16")
     p.add_argument("--data-parallel", type=int, default=1,
                    help=argparse.SUPPRESS)
     p.add_argument("--no-warmup", action="store_true",
@@ -99,11 +105,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if (args.weights is None) == (args.model_dir is None):
         p.error("give one of --weights (a .pth file) or --model-dir (a "
                 "cli/train save directory)")
-    for flag, on in (("--dtype int8", args.dtype == "int8"),
-                     ("--data-parallel", args.data_parallel != 1)):
-        if on:
-            p.error(f"{flag} is not ported to the PyTorch package yet "
-                    f"(ROADMAP.md §1, '{UNPORTED[flag]}')")
+    if args.data_parallel != 1:
+        p.error(f"--data-parallel is not ported to the PyTorch package yet "
+                f"(ROADMAP.md §1, '{UNPORTED['--data-parallel']}')")
     return args
 
 
@@ -131,13 +135,26 @@ def build_server(args: argparse.Namespace) -> SegmentationServer:
         return checkpoint_path(args.model_dir, args.model, args.use_pk_maps)
 
     served = path()
+    int8 = args.dtype == "int8"
     model, data_cfg, model_cfg, meta = restore_for_inference(
         args.model, served, use_subtraction=args.use_subtraction,
         use_pk_maps=args.use_pk_maps or None, num_classes=args.num_classes,
-        base_c=args.base_c, crop_size=args.crop_size, dtype=args.dtype,
-        device=args.device)
+        base_c=args.base_c, crop_size=args.crop_size,
+        dtype="bf16" if int8 else args.dtype, device=args.device)
     print(f"serving {served} (epoch {meta.get('epoch', '?')}) on "
           f"{args.device} in {args.dtype}")
+    if int8:
+        from stf_unet_tpu_torch.ops import quant
+        spath = quant.scales_path_for(served)
+        if not os.path.exists(spath):
+            model_dir = args.model_dir or os.path.dirname(served) or "."
+            raise SystemExit(
+                f"error: {spath} not found — calibrate first: python -m "
+                f"stf_unet_tpu_torch.cli.quantize --model {args.model} "
+                f"--model-dir {model_dir} --root <dataset>")
+        scales = quant.load_scales(spath, checkpoint_meta=meta)
+        model = quant.QuantizedModel(model, scales).eval()
+        print(f"int8 serving: {len(scales)} convs quantized ({spath})")
     weights = model
     if args.tta:
         from stf_unet_tpu_torch.ops.tta import FlipTTAModel
@@ -154,10 +171,13 @@ def build_server(args: argparse.Namespace) -> SegmentationServer:
 
     def reloader():
         """POST /v1/reload: re-read the best / latest checkpoint (or the
-        --weights file), so a training run can promote a new best into
-        the live server."""
+        --weights file), and under int8 its scales, quantized afresh, so a
+        training run can promote a new best into the live server."""
         again = path()
         state, meta2 = load_reference_checkpoint(again)
+        if int8:
+            state = weights.state_from(state, quant.load_scales(
+                quant.scales_path_for(again), checkpoint_meta=meta2))
         return state, {"checkpoint": again, "epoch": meta2.get("epoch"),
                        "best_dice": meta2.get("best_dice")}
 

@@ -148,3 +148,51 @@ def stflstm_state_dict_from_jax(params: Mapping, batch_stats: Mapping
                     batch_stats["final_res"])
     _conv(sd, "final", params["final"])
     return _torch(sd)
+
+
+def _residual_conv_names(jax_prefix: str, port_prefix: str) -> Dict:
+    return {f"{jax_prefix}/{j}": f"{port_prefix}.{p}"
+            for j, p in (("conv1", "conv_block.0"), ("conv2", "conv_block.3"),
+                         ("shortcut_conv", "shortcut.0"))}
+
+
+def _conv_names(model_name: str) -> Dict[str, str]:
+    """Every conv path the JAX model can calibrate (flax module paths
+    joined by "/", as stf_unet_tpu/ops/quant.py keys them) -> the port's
+    module name, by the same mapping as the state_dict bridges above."""
+    if model_name == "unet":
+        names = {f"{n}/conv{i + 1}/conv": f"{n}.{idx}"
+                 for n in _UNET_DOUBLE_CONVS for i, idx in enumerate((0, 3))}
+        names["out_conv"] = "out_conv"
+        return names
+    if model_name != "stflstm":
+        raise ValueError(f"Unknown model type: {model_name}")
+    names = {"encoder/conv1": "conv1", "final": "final"}
+    for stage, blocks in enumerate(_STAGE_SIZES):
+        for b in range(blocks):
+            jax_block = f"encoder/layer{stage + 1}_block{b}"
+            port_block = f"layer{stage + 1}.{b}"
+            for j, p in (("conv1", "conv1"), ("conv2", "conv2"),
+                         ("down_conv", "downsample.0")):
+                names[f"{jax_block}/{j}"] = f"{port_block}.{p}"
+    for i in range(1, 5):
+        names[f"pk_fusion{i}"] = f"pk_fusion{i}"
+    for i in (4, 3, 2):
+        names[f"decoder{i}/fusion"] = f"decoder{i}.fusion"
+        names.update(_residual_conv_names(f"decoder{i}/res_conv",
+                                          f"decoder{i}.res_conv"))
+    names.update(_residual_conv_names("final_res", "final_res"))
+    return names
+
+
+def conv_scales_from_jax(scales: Mapping[str, float], model_name: str
+                         ) -> Dict[str, float]:
+    """The JAX package's int8 calibration scales ({flax conv path:
+    absmax}, stf_unet_tpu/ops/quant.py) keyed by the port's conv module
+    names (ops/quant.py); raises on a path the model has no conv for."""
+    names = _conv_names(model_name)
+    unknown = sorted(set(scales) - set(names))
+    if unknown:
+        raise ValueError(f"no {model_name} conv for the JAX scale paths "
+                         f"{unknown}")
+    return {names[path]: float(v) for path, v in scales.items()}

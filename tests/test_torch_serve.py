@@ -145,8 +145,10 @@ def test_cli_flags():
     args = parse_args(["--weights", "m.pth"])
     assert (args.model, args.dtype, args.device, args.max_batch) == \
         ("stflstm", "bf16", "cuda", 8)
+    assert parse_args(["--weights", "m.pth", "--dtype", "int8"]).dtype == \
+        "int8"
     with pytest.raises(SystemExit):
-        parse_args(["--weights", "m.pth", "--dtype", "int8"])
+        parse_args(["--weights", "m.pth", "--data-parallel", "2"])
 
 
 @pytest.mark.parametrize("shape", [(3, 256, 256), (2, 300, 240),

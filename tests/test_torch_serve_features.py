@@ -232,16 +232,27 @@ def test_reload_under_load_answers_every_request(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--weights", "a.pth", "--dtype", "int8"], "7.4 int8"),
+    (["--weights", "a.pth", "--dtype", "int8"], "calibrate first"),
     (["--model-dir", "d", "--data-parallel", "2"], "data parallelism"),
     ([], "--weights"),
 ])
-def test_serve_refusals(argv, item, capsys):
-    with pytest.raises(SystemExit):
-        parse_args(["--model", "unet", *argv])
-    err = capsys.readouterr().err
-    assert item in err
-    if argv:
-        assert "ROADMAP.md" in err
+def test_serve_refusals(argv, item, capsys, tmp_path, monkeypatch):
+    if "int8" in argv:
+        # --dtype int8 parses; the server refuses a checkpoint that has no
+        # calibrated scales beside it, naming the command that writes them
+        monkeypatch.chdir(tmp_path)
+        _write("a.pth", seed=0, epoch=1)
+        assert parse_args(ARGS + argv).dtype == "int8"
+        with pytest.raises(SystemExit, match=item) as e:
+            build_server(parse_args(ARGS + argv))
+        assert "a.quant_scales.json not found" in str(e.value)
+        assert "python -m stf_unet_tpu_torch.cli.quantize" in str(e.value)
+    else:
+        with pytest.raises(SystemExit):
+            parse_args(["--model", "unet", *argv])
+        err = capsys.readouterr().err
+        assert item in err
+        if argv:
+            assert "ROADMAP.md" in err
     with pytest.raises(SystemExit):
         parse_args(["--weights", "a.pth", "--model-dir", "d"])
