@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the repository root
 
 Phases, each of which fails the run (non-zero exit, no result line):
-  1. card: print the GPU's name and power limit; build the six CUDA
+  1. card: print the GPU's name and power limit; build the seven CUDA
      kernels from csrc/ with nvcc, in parallel, and print the build seconds.
   2. kernels: each kernel against its plain PyTorch version on the card.
      K1 forward and K3 at every row count the serving and training paths
@@ -45,10 +45,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (profiler_aftereffect). Then K5 (the int8 convolution's operand
      pass, ops/kernels/quant.py) at every conv call of one bf16 B=8,
      crop-224 forward of the full-width STF-LSTM-UNet, its PK-maps
-     variant and the UNet, bit-equal to its plain twin, with the int32
+     variant and the UNet, with each call's input NCHW-contiguous and
+     channels-last, bit-equal to its plain twin in both, with the int32
      accumulators of torch._int_mm on its patches equal to an f64
-     F.conv2d of the same integers, and kernel, plain and library-route
-     times and the byte bound, summed per forward.
+     F.conv2d of the same integers; and K6 (the dequant epilogue) on
+     those real accumulators of every call, bit-equal to its plain twin
+     in bf16 and f32, with and without bias. Kernel, plain and (K5)
+     library-route times and the byte bounds, summed per forward.
   3. serving: a seeded full-width STF-LSTM-UNet (ResNet-34, pixel LSTMs at
      C=64..512, T=8, crop 224, bf16) written as a reference-layout .pth,
      served through cli/serve.build_server on 127.0.0.1, answering
@@ -129,16 +132,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      checkpoint of another architecture; K1 and K3 launched.
  20. int8: `cli.quantize --threshold-sweep` (bf16) on the best
      checkpoints of phases 6 and 9 (48 and 19 convs quantized, float and
-     int8 dice, the delta, the operating points; K5 launched) and
+     int8 dice, the delta, the operating points; K5 and K6 launched) and
      `--no-eval` on phase 15's; bf16 and int8 forwards of both at B=8 and
      16 (CUDA events, bf16 / int8 / int8 / bf16) and a torch.profiler
      split of the int8 forward at B=8 (K5, the int8 GEMM, the dequant
-     epilogue, the rest); a server with --model-dir --dtype int8 --tta
-     --tiled answering 4 requests at 224^2 and 4 at 256^2, its masks equal
-     to the direct quantized forward's and their share equal to a bf16
-     server's, reloaded with phase 15's checkpoint and its scales (200,
-     the new weights' masks) and refused without scales (409); K1, K3
-     and K5 launched.
+     epilogue with K6 by name, the rest, the copy kernels that aten ops
+     launch inside the conv ranges, which must be none) and its logits
+     through K5 and K6 bit-equal to the same forward through their plain
+     twins; a server with --model-dir --dtype int8 --tta --tiled
+     answering 4 requests at 224^2 and 4 at 256^2, its masks equal to the
+     direct quantized forward's and their share equal to a bf16 server's,
+     reloaded with phase 15's checkpoint and its scales (200, the new
+     weights' masks) and refused without scales (409); K1, K3, K5 and K6
+     launched.
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -1429,13 +1435,15 @@ def counters():
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x import lstm_last_x
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x_bwd import (
         lstm_last_x_bwd)
-    from stf_unet_tpu_torch.ops.kernels.quant import quantize_patches
+    from stf_unet_tpu_torch.ops.kernels.quant import (dequant_epilogue,
+                                                      quantize_patches)
     from stf_unet_tpu_torch.ops.kernels.tofts import tofts_sums
     from stf_unet_tpu_torch.ops.kernels.warp import warp
 
     return {"lstm_last_x": lstm_last_x, "lstm_last": lstm_last,
             "lstm_last_x_bwd": lstm_last_x_bwd, "warp": warp,
-            "tofts_sums": tofts_sums, "quant_patches": quantize_patches}
+            "tofts_sums": tofts_sums, "quant_patches": quantize_patches,
+            "quant_epilogue": dequant_epilogue}
 
 
 def reset_counts() -> dict:
@@ -2770,20 +2778,24 @@ def serve_dir_phase(weights: str, newer: str, pk_best: str):
     return launches
 
 
-# K5, the int8 convolution's operand pass (ops/kernels/quant.py), at every
-# conv call of one bf16 B=8, crop-224 forward of each full-width model:
-# STF-LSTM-UNet, its PK-maps variant (the 4-channel stem, pk_fusion) and
-# the UNet (base_c 64); bit-equal to its plain twin, and the int32
-# accumulators of the same patches (torch._int_mm against random int8
-# weights) equal to an f64 F.conv2d of the same integers on the first
-# sample, rounded (exact: |acc| < 2^53).
+# K5, the int8 convolution's operand pass, and K6, its dequant epilogue
+# (ops/kernels/quant.py), at every conv call of one bf16 B=8, crop-224
+# forward of each full-width model: STF-LSTM-UNet, its PK-maps variant (the
+# 4-channel stem, pk_fusion) and the UNet (base_c 64). K5 bit-equal to its
+# plain twin with the call's input NCHW-contiguous and channels-last (the
+# layout the int8 path hands it), and the int32 accumulators of the same
+# patches (torch._int_mm against random int8 weights) equal to an f64
+# F.conv2d of the same integers on the first sample, rounded (exact: |acc|
+# < 2^53). K6 bit-equal to its plain twin on those accumulators of the
+# whole batch, with random sw and bias, in bf16 and f32, with and without
+# bias; timed in bf16 with the call's own bias or none.
 QUANT_BATCH = 8
 QUANT_MODELS = ("stflstm", "stflstm_pk", "unet")
 
 
 def conv_calls(device):
-    """{model: [(x, (kernel, stride, padding, out channels), calls)]}: the
-    input of each distinct conv call (input shape and geometry) of one
+    """{model: [(x, (kernel, stride, padding, out channels, bias), calls)]}:
+    the input of each distinct conv call (input shape and geometry) of one
     bf16 B=8 forward of each full-width model (seeded weights), with the
     number of calls that share it."""
     import torch
@@ -2807,7 +2819,8 @@ def conv_calls(device):
 
         def record(mod, args):
             geom = (tuple(mod.kernel_size), tuple(mod.stride),
-                    tuple(mod.padding), mod.out_channels)
+                    tuple(mod.padding), mod.out_channels,
+                    mod.bias is not None)
             key = (tuple(args[0].shape), geom)
             if key in seen:
                 seen[key][2] += 1
@@ -2828,107 +2841,189 @@ def conv_calls(device):
 
 def library_patches(x, scale, kernel, stride, padding, kp):
     """The nearest library route to K5: quantize, F.unfold on the
-    quantized bf16 tensor (integers up to 127, exact in bf16),
-    .to(torch.int8) and the K pad."""
+    quantized bf16 tensor (integers up to 127, exact in bf16), the
+    columns to K5's (dy, dx, c) order, .to(torch.int8) and the K pad."""
     import torch
     import torch.nn.functional as F
 
     from stf_unet_tpu_torch.ops.kernels.quant import quantize_activation
 
+    n, c = x.shape[:2]
     cols = F.unfold(quantize_activation(x, scale).to(torch.bfloat16),
                     kernel, padding=padding, stride=stride)
-    mat = cols.transpose(1, 2).reshape(-1, cols.shape[1]).to(torch.int8)
+    mat = cols.reshape(n, c, kernel[0] * kernel[1], -1).permute(
+        0, 3, 2, 1).reshape(-1, cols.shape[1]).to(torch.int8)
     return F.pad(mat, (0, kp - mat.shape[1]))
 
 
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def epilogue_check(acc, m, cout, scale, gen, device):
+    """K6 on the GEMM's real accumulators `acc` against its plain twin, in
+    bf16 and f32, with and without bias (random sw in [1e-4, 1e-2], bias
+    N(0, 1)); returns (max abs err, bit-equal in all four, sw, bias)."""
+    import torch
+
+    from stf_unet_tpu_torch.ops.kernels.quant import (dequant_epilogue,
+                                                      dequant_epilogue_plain)
+
+    sw = torch.rand((cout,), generator=gen, device=device) * 9.9e-3 + 1e-4
+    bias = torch.randn((cout,), generator=gen, device=device)
+    err, equal = 0.0, True
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in (bias, None):
+            args = (acc, m, sw, scale, b, dtype)
+            got = dequant_epilogue(*args)
+            want = dequant_epilogue_plain(*args)
+            equal &= _bits_equal(got, want)
+            err = max(err, (got.float() - want.float()).abs().max().item())
+    return err, equal, sw, bias
+
+
 def quant_phase(device, quick: bool):
-    """K5 against its plain twin and the GEMM's accumulators against f64
+    """K5 against its plain twin in both layouts, the GEMM's accumulators
+    against f64, and K6 against its plain twin on the GEMM's accumulators,
     at every conv call of the three models (conv_calls); with timings of
-    kernel, plain twin and library route (CUDA events) and the byte bound
-    per distinct call, summed over each model's forward. Returns the
-    kernels-line entry (one STF-LSTM-UNet B=8 forward's sums)."""
+    each kernel and its plain twin (and K5's library route) by CUDA events
+    and the byte bounds per distinct call, summed over each model's
+    forward. Returns the kernels-line entries of K5 and K6 (one
+    STF-LSTM-UNet B=8 forward's sums)."""
     import torch
     import torch.nn.functional as F
 
     from stf_unet_tpu_torch.ops import quant
-    from stf_unet_tpu_torch.ops.kernels.quant import (conv_out_size, padded,
+    from stf_unet_tpu_torch.ops.kernels.quant import (conv_out_size,
+                                                      dequant_epilogue,
+                                                      dequant_epilogue_plain,
+                                                      padded,
                                                       quantize_activation,
                                                       quantize_patches,
                                                       quantize_patches_plain)
 
     gen = torch.Generator(device=device).manual_seed(2)
-    forwards = {}
+    forwards = {"quant_patches": {}, "quant_epilogue": {}}
     for label, calls in conv_calls(device).items():
-        fwd = forwards.setdefault(label, {
+        k5 = forwards["quant_patches"].setdefault(label, {
+            "convs": 0, "distinct": len(calls), "ms": 0.0, "ms_nchw": 0.0,
+            "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0})
+        k6 = forwards["quant_epilogue"].setdefault(label, {
             "convs": 0, "distinct": len(calls), "ms": 0.0, "plain_ms": 0.0,
-            "library_ms": 0.0, "bound_ms": 0.0})
-        for x, (kernel, stride, padding, cout), count in calls:
+            "bound_ms": 0.0})
+        for x, (kernel, stride, padding, cout, has_bias), count in calls:
             n, c, h, w = x.shape
             ho, wo = conv_out_size(h, w, kernel, stride, padding)
             kp = padded(c * kernel[0] * kernel[1])
             m = n * ho * wo
+            layouts = {"nchw": x.contiguous(),
+                       "channels_last": x.contiguous(
+                           memory_format=torch.channels_last)}
             with torch.inference_mode():
                 scale = quant.activation_scale(x.abs().amax())
-                args = (x, scale, kernel, stride, padding, kp)
-                got = quantize_patches(*args)
-                want = quantize_patches_plain(*args)
-                torch.cuda.synchronize()
-                err = (got.int() - want.int()).abs().max().item()
-                # the accumulators on the first sample (its T frames in
-                # the STF models' folded batch)
-                first = x[:T_STEPS if label.startswith("stflstm") else 1]
+                geom = (scale, kernel, stride, padding, kp)
+                want = quantize_patches_plain(layouts["nchw"], *geom)
+                errs = {}
+                for name, xl in layouts.items():
+                    got = quantize_patches(xl, *geom)
+                    torch.cuda.synchronize()
+                    errs[name] = (got.int() - want.int()).abs().max().item()
+                # `got` is the channels-last patches, the int8 path's
                 wq = torch.randint(-127, 128, (cout, c, *kernel),
                                    generator=gen, device=device,
                                    dtype=torch.int8)
-                acc = torch._int_mm(quantize_patches(
-                    first, scale, kernel, stride, padding, kp),
-                    quant.pack_weights(wq).t())[:, :cout]
+                wq_mat = quant.pack_weights(wq).t()
+                # the accumulators on the first sample (its T frames in
+                # the STF models' folded batch)
+                first = x[:T_STEPS if label.startswith("stflstm") else 1]
+                acc1 = torch._int_mm(quantize_patches(
+                    first.contiguous(memory_format=torch.channels_last),
+                    *geom), wq_mat)[:, :cout]
                 ref = F.conv2d(quantize_activation(first, scale).double(),
                                wq.double(), stride=stride, padding=padding)
                 acc_equal = torch.equal(
-                    acc.double(), ref.permute(0, 2, 3, 1).reshape(
+                    acc1.double(), ref.permute(0, 2, 3, 1).reshape(
                         -1, cout).round())
+                acc = torch._int_mm(got, wq_mat)
+                e_err, e_equal, sw, bias = epilogue_check(
+                    acc, m, cout, scale, gen, device)
+                torch.cuda.synchronize()
             line = {"kernel": "quant_patches", "model": label,
                     "x": list(x.shape), "dtype": "bf16", "kernel_size":
                     list(kernel), "stride": list(stride), "padding":
                     list(padding), "calls": count, "M": m, "Kp": kp,
-                    "max_abs_err": err, "acc_equal_f64": acc_equal}
-            check(err == 0, f"quant_patches {label} {line['x']} {kernel} "
-                            f"s{stride}: differs from the plain twin by "
-                            f"{err}")
+                    "max_abs_err": max(errs.values()),
+                    "max_abs_err_by_layout": errs,
+                    "acc_equal_f64": acc_equal}
+            epi = {"kernel": "quant_epilogue", "model": label,
+                   "acc": list(acc.shape), "M": m, "O": cout,
+                   "bias": has_bias, "calls": count, "max_abs_err": e_err,
+                   "bit_equal": e_equal}
+            check(line["max_abs_err"] == 0,
+                  f"quant_patches {label} {line['x']} {kernel} s{stride}: "
+                  f"differs from the plain twin by {errs}")
             check(acc_equal, f"int8 GEMM {label} {line['x']} {kernel}: "
                              f"accumulators differ from the f64 conv")
-            fwd["convs"] += count
+            check(e_equal, f"quant_epilogue {label} {epi['acc']}: differs "
+                           f"from the plain twin by {e_err}")
+            k5["convs"] += count
+            k6["convs"] += count
             if not quick:
                 nbytes = x.numel() * x.element_size() + m * kp
                 bms, by = bound_ms(nbytes, 0.0, "bf16")
+                x_cl = layouts["channels_last"]
+                b = bias if has_bias else None
+                ebytes = m * cout * (4 + 2) + cout * 4 * (1 + has_bias)
+                ebms, eby = bound_ms(ebytes, 0.0, "bf16")
+                eargs = (acc, m, sw, scale, b, torch.bfloat16)
                 with torch.inference_mode():
                     line.update(
-                        kernel_ms=cuda_ms(lambda: quantize_patches(*args),
+                        kernel_ms=cuda_ms(lambda: quantize_patches(
+                            x_cl, *geom), iters=10),
+                        kernel_ms_nchw=cuda_ms(lambda: quantize_patches(
+                            layouts["nchw"], *geom), iters=10),
+                        plain_ms=cuda_ms(
+                            lambda: quantize_patches_plain(x_cl, *geom),
+                            iters=3),
+                        library_ms=cuda_ms(
+                            lambda: library_patches(x_cl, *geom), iters=3),
+                        bound_us=bms * 1e3, bound_by=by)
+                    epi.update(
+                        kernel_ms=cuda_ms(lambda: dequant_epilogue(*eargs),
                                           iters=10),
                         plain_ms=cuda_ms(
-                            lambda: quantize_patches_plain(*args), iters=3),
-                        library_ms=cuda_ms(
-                            lambda: library_patches(*args), iters=3),
-                        bound_us=bms * 1e3, bound_by=by)
+                            lambda: dequant_epilogue_plain(*eargs), iters=3),
+                        bound_us=ebms * 1e3, bound_by=eby)
                 for key in ("plain_ms", "library_ms"):
-                    fwd[key] += count * line[key]
-                fwd["ms"] += count * line["kernel_ms"]
-                fwd["bound_ms"] += count * bms
+                    k5[key] += count * line[key]
+                k5["ms"] += count * line["kernel_ms"]
+                k5["ms_nchw"] += count * line["kernel_ms_nchw"]
+                k5["bound_ms"] += count * bms
+                k6["ms"] += count * epi["kernel_ms"]
+                k6["plain_ms"] += count * epi["plain_ms"]
+                k6["bound_ms"] += count * ebms
             print(json.dumps(line), flush=True)
-            del got, want
+            print(json.dumps(epi), flush=True)
+            del got, want, acc, acc1, layouts
         torch.cuda.empty_cache()
-    print(json.dumps({"quant_patches_per_forward": {
+    print(json.dumps({"quant_per_forward": {
         "batch": QUANT_BATCH, "crop": CROP, "forwards": forwards}}),
         flush=True)
-    stf = forwards["stflstm"]
-    return {"max_abs_err": 0, "ms": stf["ms"] if not quick else None,
+    entries = {}
+    for name, per in forwards.items():
+        stf = per["stflstm"]
+        entries[name] = {
+            "max_abs_err": 0, "ms": stf["ms"] if not quick else None,
             "plain_ms": stf["plain_ms"], "bound_ms": stf["bound_ms"],
-            "bound_by": "bytes", "library_ms": stf["library_ms"],
+            "bound_by": "bytes", "library_ms": stf.get("library_ms"),
             "shapes": [{"model": label, "B": QUANT_BATCH, "crop": CROP,
                         "convs": f["convs"], "distinct": f["distinct"]}
-                       for label, f in forwards.items()],
-            "per_forward": forwards}
+                       for label, f in per.items()],
+            "per_forward": per}
+    return entries
 
 
 # Phase 20, int8: cli.quantize on phase 6's and phase 9's best checkpoints;
@@ -2946,18 +3041,23 @@ INT8_CONVS = {"stflstm": 48, "unet": 19}
 def int8_split(qmodel, x) -> dict:
     """torch.profiler view of 3 int8 forwards qmodel(x), with each
     quantized conv's call in a record_function range "int8_conv" (forward
-    pre-hooks / hooks on the convs): per forward, K5's device ms (by
-    kernel name), the int8 GEMM's (aten::_int_mm), the dequant epilogue's
-    (the rest of the conv ranges) and the rest of the forward."""
+    pre-hooks / hooks on the convs): per forward, K5's and K6's device ms
+    (by kernel name), the int8 GEMM's (aten::_int_mm), the dequant
+    epilogue's (K6 and whatever else runs in the conv ranges: the scale's
+    two small kernels), the rest of the forward, and the copy kernels that
+    aten ops launch inside the conv ranges (count, ms per forward and the
+    ops; none expected); and per conv call of the last forward, in order,
+    its input shape and K5's and K6's device us."""
     import torch
     from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
 
     names = set(qmodel.paths)
     convs = [m for name, m in qmodel.model.named_modules() if name in names]
-    stack = []
+    stack, shapes = [], []
 
-    def enter(_mod, _args):
+    def enter(_mod, args):
+        shapes.append(list(args[0].shape))
         rf = record_function("int8_conv")
         rf.__enter__()
         stack.append(rf)
@@ -2970,6 +3070,7 @@ def int8_split(qmodel, x) -> dict:
     try:
         qmodel(x)
         torch.cuda.synchronize()
+        shapes.clear()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
@@ -2984,40 +3085,100 @@ def int8_split(qmodel, x) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == cuda and e.key != "int8_conv"]
     busy = sum(dev_ms(e) for e in kernels) / 3
-    k5 = sum(dev_ms(e) for e in kernels if "quant_patches" in e.key) / 3
+    # the port's kernels launch through ctypes, under no operator: count
+    # them by name whether or not the profiler put them inside a range
+    ours = ("quant_patches", "quant_epilogue")
+    k5, k6 = (sum(dev_ms(e) for e in kernels if name in e.key) / 3
+              for name in ours)
 
-    def under(evt):  # (name, us) of the kernels launched in evt's subtree
-        out = [(k.name, k.duration) for k in getattr(evt, "kernels", [])]
+    def under(evt, op=None):
+        """(kernel name, us, innermost aten op or None) of the kernels in
+        evt's subtree."""
+        out = [(k.name, k.duration, op) for k in getattr(evt, "kernels", [])]
         for child in evt.cpu_children:
-            out += under(child)
+            out += under(child, child.name if child.name.startswith("aten::")
+                         else op)
         return out
 
     events = [e for e in prof.events() if e.device_type == cpu]
     in_ranges = [k for e in events if e.name == "int8_conv"
                  for k in under(e)]
     gemm = sum(d for e in events if e.name == "aten::_int_mm"
-               for _, d in under(e)) / 3e3
-    # the kernel's launch goes through ctypes, under no operator: count
-    # it by name whether or not the profiler put it inside a range
-    epilogue = (sum(d for name, d in in_ranges
-                    if "quant_patches" not in name) / 3e3 - gemm)
+               for _, d, _ in under(e)) / 3e3
+    others = sum(d for name, d, _ in in_ranges
+                 if not any(o in name for o in ours)) / 3e3 - gemm
+    # a copy the conv path makes comes from an aten op (copy_, contiguous,
+    # to); a copy-named kernel with none above it in the range is one the
+    # profiler tied to a bare runtime call there, reported apart
+    copies = [(d, op) for name, d, op in in_ranges
+              if "copy" in name.lower() and op is not None]
+    unattributed = sorted({name[:60] for name, _, op in in_ranges
+                           if "copy" in name.lower() and op is None})
+    epilogue = k6 + others
     top = sorted(kernels, key=dev_ms, reverse=True)[:8]
     measured = bool(busy and in_ranges)
+    launches = sorted((e for e in prof.events() if e.device_type == cuda),
+                      key=lambda e: e.time_range.start)
+    per = {name: [e.time_range.elapsed_us() for e in launches
+                  if name in e.name] for name in ours}
+    # the last forward's: the window may miss its first launch
+    calls = len(shapes) // 3
+    per_conv = ([{"x": shapes[i - calls], **{
+        f"{name}_us": per[name][i - calls] for name in ours}}
+        for i in range(calls)]
+        if all(len(v) >= calls for v in per.values())
+        else {"not measured: launches seen": {
+            "convs": len(shapes), **{k: len(v) for k, v in per.items()}}})
     return {"kernel_ms": busy or "not measured",
             "quant_patches_ms": k5, "int_mm_ms": gemm,
+            "quant_epilogue_ms": k6,
             "epilogue_ms": epilogue if measured else "not measured",
             "rest_ms": (busy - k5 - gemm - epilogue) if measured
             else "not measured",
+            "copies_in_conv_ranges": len(copies) / 3 if measured
+            else "not measured",
+            "copies_in_conv_ranges_ms": sum(d for d, _ in copies) / 3e3,
+            "copies_in_conv_ranges_ops": sorted({op for _, op in copies}),
+            "copy_kernels_without_an_op_in_conv_ranges": unattributed,
+            "per_conv": per_conv,
             "top_kernels": [{"name": e.key[:90], "calls": e.count / 3,
                              "ms": dev_ms(e) / 3} for e in top]}
+
+
+def int8_path_check(qmodel, x) -> dict:
+    """The int8 forward qmodel(x) through K5 and K6 against the same
+    forward with ops/quant's two passes swapped for their plain twins (on
+    the card): the logits bit-equal and every argmax pixel equal (cuDNN
+    deterministic in both, so only the two passes can differ)."""
+    import torch
+
+    from stf_unet_tpu_torch.ops import quant
+    from stf_unet_tpu_torch.ops.kernels import quant as kq
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = qmodel(x)["out"].float()
+        quant.quantize_patches = kq.quantize_patches_plain
+        quant.dequant_epilogue = kq.dequant_epilogue_plain
+        want = qmodel(x)["out"].float()
+    finally:
+        quant.quantize_patches = kq.quantize_patches
+        quant.dequant_epilogue = kq.dequant_epilogue
+        torch.backends.cudnn.deterministic = deterministic
+    return {"bit_equal": torch.equal(got, want),
+            "max_abs_err": (got - want).abs().max().item(),
+            "argmax_equal": (got.argmax(-1) == want.argmax(-1)).float()
+            .mean().item()}
 
 
 def int8_forward_phase(runs, device: str = "cuda") -> dict:
     """bf16 and int8 forwards of each (model, save directory) of `runs`
     (the best checkpoint and its scales), CUDA-event ms per batch in the
     order bf16, int8, int8, bf16 at each of INT8_BATCHES; then, after
-    every event timing (profiled_pass), the bf16 forward's kernel time and
-    the int8 forward's device split at B=8 (int8_split)."""
+    every event timing (profiled_pass), the bf16 forward's kernel time,
+    the int8 forward's device split at B=8 (int8_split) and its logits
+    through the kernels against the plain twins' (int8_path_check)."""
     import torch
 
     from stf_unet_tpu_torch.cli.common import (checkpoint_path,
@@ -3053,7 +3214,13 @@ def int8_forward_phase(runs, device: str = "cuda") -> dict:
     for line, model, qmodel, x in profiled:
         with torch.inference_mode():
             line["bf16_kernel_ms_b8"] = profiled_ms(lambda: model(x), 3)
-            line["int8_split_b8"] = int8_split(qmodel, x)
+            split = line["int8_split_b8"] = int8_split(qmodel, x)
+            path = line["kernels_vs_plain_b8"] = int8_path_check(qmodel, x)
+        check(split["copies_in_conv_ranges"] in (0, "not measured"),
+              f"int8 forward: {split['copies_in_conv_ranges']} copy "
+              f"kernels a forward inside the quantized convs")
+        check(path["bit_equal"], f"int8 forward through K5 and K6 differs "
+                                 f"from the plain twins' by {path}")
     del profiled
     torch.cuda.empty_cache()
     print(json.dumps({"int8_forward": out}), flush=True)
@@ -3155,9 +3322,8 @@ def int8_serve(stf_weights: str, newer: str, device: str = "cuda"):
         server.stop()
         for path in (best, scales):
             shutil.move(path + ".kept", path)
-    check(launches["quant_patches"] > 0, "kernel quant_patches never "
-                                         "launched by the int8 server")
-    for name in ("lstm_last_x", "lstm_last"):
+    for name in ("lstm_last_x", "lstm_last", "quant_patches",
+                 "quant_epilogue"):
         check(launches[name] > 0, f"kernel {name} never launched by the "
                                   f"int8 server")
     return launches, {
@@ -3205,9 +3371,9 @@ def int8_phase(data: str, stf_weights: str, unet_weights: str,
         check(res["num_convs"] == INT8_CONVS[model],
               f"cli.quantize {model}: {res['num_convs']} convs quantized")
         if "--no-eval" not in extra:
-            check(launches["quant_patches"] > 0, f"kernel quant_patches "
-                                                 f"never launched in "
-                                                 f"cli.quantize {model}")
+            for name in ("quant_patches", "quant_epilogue"):
+                check(launches[name] > 0, f"kernel {name} never launched "
+                                          f"in cli.quantize {model}")
             check(all(math.isfinite(res[k]) for k in ("dice_float",
                                                       "dice_int8")),
                   f"cli.quantize {model}: dice {res}")
@@ -3267,7 +3433,7 @@ def main() -> int:
     agg["lstm_last_x_bwd"] = lstm_bwd_phase(device, args.quick, jobs)
     agg["warp"] = warp_phase(device, args.quick, jobs)
     agg["tofts_sums"] = tofts_phase(device, args.quick, jobs)
-    agg["quant_patches"] = quant_phase(device, args.quick)
+    agg.update(quant_phase(device, args.quick))
     if args.quick:
         print("quick: kernels build and agree with their plain versions")
         return 0
@@ -3326,8 +3492,9 @@ def main() -> int:
         deploy["int8"], int8_forwards = int8_phase(
             data, stf_weights, unet_weights,
             os.path.join(tmpdir, "weights_extras"))
-    agg["quant_patches"]["device_ms"] = int8_forwards["stflstm"][
-        "int8_split_b8"]["quant_patches_ms"]
+    for name in ("quant_patches", "quant_epilogue"):
+        agg[name]["device_ms"] = int8_forwards["stflstm"]["int8_split_b8"][
+            f"{name}_ms"]
     pk_launches = {name: sum(run[name] for run in pk_runs)
                    for name in counters()}
 
@@ -3352,9 +3519,14 @@ def main() -> int:
          "source": "stf_unet_tpu_torch/csrc/quant_patches.cu",
          "replaces": "stf_unet_tpu/ops/quant.py:86 (XLA int8 conv; no "
                      "pallas_call)"},
+        {"name": "quant_epilogue", "route": "cuda",
+         "source": "stf_unet_tpu_torch/csrc/quant_epilogue.cu",
+         "replaces": "stf_unet_tpu/ops/quant.py:97 (the XLA int8 conv's "
+                     "f32 epilogue; no pallas_call)"},
     ]
     dtypes = {"warp": "uint8 in, f32 out", "tofts_sums": "f32",
-              "quant_patches": "bf16 in, int8 out"}
+              "quant_patches": "bf16 in, int8 out",
+              "quant_epilogue": "int32 in, bf16 out"}
     for k in kernels:
         a = agg[k["name"]]
         by_path = {"serve": serve_launches[k["name"]],

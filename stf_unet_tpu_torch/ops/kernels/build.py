@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("lstm_last_x", "lstm_last", "lstm_last_x_bwd", "warp",
-           "tofts_sums", "quant_patches")
+           "tofts_sums", "quant_patches", "quant_epilogue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

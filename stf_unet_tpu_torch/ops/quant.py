@@ -17,15 +17,19 @@ prints the float-vs-int8 dice delta before anything serves, and
 chip_smoke.py times the int8 forward against bf16 on the card.
 
 The convolution: eager PyTorch has no int8 convolution on CUDA, so
-`int8_conv2d` runs it as a GEMM. Kernel K5 (ops/kernels/quant.py,
-csrc/quant_patches.cu) quantizes x and gathers its patches into an int8
-[M, Kp] matrix in one pass; `torch._int_mm` (cuBLASLt's int8 tensor-core
-product) multiplies it by the weights, packed once at quantize time as
-int8 [Np, Kp] (K and the output channels padded with zeros to multiples
-of 8, the GEMM's shape rule on CUDA, which also takes M > 16: a smaller
-M is padded with zero rows). The accumulators are exact integers, so the
-result equals XLA's int8 convolution bit for bit; the epilogue is the
-JAX package's order of operations (`_int8_conv`, quant.py:97-102).
+`int8_conv2d` runs it as a GEMM in three launches (ops/kernels/quant.py).
+Kernel K5 (csrc/quant_patches.cu) quantizes x, NCHW or channels-last as
+it arrives, and gathers its patches into an int8 [M, Kp] matrix in one
+pass, k = (dy*KW + dx)*C + c; `torch._int_mm` (cuBLASLt's int8
+tensor-core product) multiplies it by the weights, packed once at
+quantize time as int8 [Np, Kp] in the same k order (K and the output
+channels padded with zeros to multiples of 8, the GEMM's shape rule on
+CUDA, which also takes M > 16: a smaller M is padded with zero rows);
+kernel K6 (csrc/quant_epilogue.cu) reads each int32 accumulator once and
+writes the output in the JAX package's order of operations (`_int8_conv`,
+quant.py:97-102). The accumulators are exact integers in any k order, so
+the result equals XLA's int8 convolution bit for bit. The output is a
+channels-last view, which the next quantized conv's K5 reads as it is.
 
 Mechanics, as the JAX package's interceptor: no model code changes.
 `QuantizedModel(model, scales)` keeps the float model, and for every
@@ -64,7 +68,8 @@ import torch
 import torch.nn as nn
 
 from stf_unet_tpu_torch.ops import conv as conv_ops
-from stf_unet_tpu_torch.ops.kernels.quant import (conv_out_size, padded,
+from stf_unet_tpu_torch.ops.kernels.quant import (conv_out_size,
+                                                  dequant_epilogue, padded,
                                                   quantize_patches)
 
 SCALES_SUFFIX = ".quant_scales.json"
@@ -85,14 +90,15 @@ def quantize_kernel(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def pack_weights(wq: torch.Tensor) -> torch.Tensor:
     """int8 OIHW -> contiguous int8 [Np, Kp]: row o is output channel o's
-    weights in the patch order k = (c*KH + dy)*KW + dx, K and O padded
+    weights in K5's patch order k = (dy*KW + dx)*C + c, K and O padded
     with zeros to multiples of 8. `.t()` of it is the GEMM's [Kp, Np]
-    operand, K-contiguous."""
+    operand, K-contiguous. Built at every construction and reload from
+    the float weights; no file holds it."""
     o = wq.shape[0]
     k = wq[0].numel()
     out = torch.zeros((padded(o), padded(k)), dtype=torch.int8,
                       device=wq.device)
-    out[:o, :k] = wq.reshape(o, k)
+    out[:o, :k] = wq.permute(0, 2, 3, 1).reshape(o, k)
     return out
 
 
@@ -109,10 +115,13 @@ def int8_conv2d(x: torch.Tensor, wq_mat: torch.Tensor, sw: torch.Tensor,
                 sx: torch.Tensor, bias: Optional[torch.Tensor],
                 kernel_size, stride=1, padding=0,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """The int8 convolution of NCHW x: wq_mat int8 [Kp, Np] (the
+    """The int8 convolution of x [N, C, H, W]: wq_mat int8 [Kp, Np] (the
     transposed `pack_weights`), sw float32 [O], sx the calibrated absmax
-    (0-d float32). Returns [N, O, Ho, Wo] in out_dtype (default x's), a
-    channels-last view of the GEMM's output."""
+    (0-d float32). K5 quantizes and gathers x, `torch._int_mm` multiplies,
+    K6 dequantizes (module docstring). x is NCHW-contiguous or
+    channels-last, as the previous quantized conv returns it (K5 refuses
+    any other layout). Returns [N, O, Ho, Wo] in out_dtype (default x's),
+    a channels-last view of K6's [M, O] output."""
     kernel_size, stride, padding = (_pair(kernel_size), _pair(stride),
                                     _pair(padding))
     n, _, h, w = x.shape
@@ -123,11 +132,10 @@ def int8_conv2d(x: torch.Tensor, wq_mat: torch.Tensor, sw: torch.Tensor,
     patches = quantize_patches(x, scale, kernel_size, stride, padding,
                                kp=wq_mat.shape[0],
                                rows=m if m > 16 else _MIN_GEMM_ROWS)
-    acc = torch._int_mm(patches, wq_mat)[:m, :o]
-    y = acc.to(torch.float32) * (sw.to(torch.float32) * scale)
-    if bias is not None:
-        y = y + bias.to(torch.float32)
-    y = y.to(x.dtype if out_dtype is None else out_dtype)
+    y = dequant_epilogue(
+        torch._int_mm(patches, wq_mat), m, sw.to(torch.float32), scale,
+        None if bias is None else bias.to(torch.float32),
+        x.dtype if out_dtype is None else out_dtype)
     return y.reshape(n, ho, wo, o).permute(0, 3, 1, 2)
 
 
