@@ -145,6 +145,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      reloaded with phase 15's checkpoint and its scales (200, the new
      weights' masks) and refused without scales (409); K1, K3, K5 and K6
      launched.
+ 21. data parallelism, in child processes that count their own
+     launches (NCCL refuses two ranks on one device): (a) cli/train
+     --multihost under torchrun's environment at world 1 (NCCL, DDP and
+     44 synced BNs engaged; bf16, batch 16, crop 224, one epoch with
+     evaluation): finite losses, a checkpoint, K1, K1b, K2 and K3
+     launched; (b) two gloo ranks on the one card (batch 8 each) against
+     one process (batch 16) on the same global batch, f32, two steps:
+     the losses and the parameters within the tolerances stated at
+     DP_LOSS_RTOL / DP_UPDATE_RTOL (cuDNN deterministic), ranks with
+     local BN statistics outside them, the ranks' parameters equal, the
+     sharded val pass's confusion matrix equal to the whole one's and
+     dice within 1e-6, each rank's kernels launched; (c) ms per bf16
+     batch-16 step with no group against NCCL world-1 DDP with synced BN
+     (events, plain / DDP / DDP / plain).
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -3396,6 +3410,411 @@ def int8_phase(data: str, stf_weights: str, unet_weights: str,
     return total, forwards
 
 
+# Phase 21, data parallelism. The card's machine has one GPU and NCCL
+# refuses two ranks on one device, so: (a) cli/train --multihost under
+# torchrun's environment at world 1 (NCCL, DDP, synced BN), full width,
+# bf16, B=16, one epoch with evaluation; (b) two gloo ranks on the one
+# card (B=8 each) against one process (B=16) over the same global batch,
+# f32, two steps, and the sharded val pass against the whole one on the
+# seeded weights; (c) ms per bf16 B=16 step with no group against NCCL
+# world-1 DDP with synced BN. Each part runs in child processes that
+# count their own kernel launches; a child that fails fails the run.
+DP_EPS = 0.1     # AdamW eps of (b): the update stays linear in the
+                 # gradient, so f32 round-off of near-zero gradients (the
+                 # conv biases before BN) is not normalized up to an lr
+DP_LR = 1e-3
+DP_STEPS = 2
+# (b)'s tolerances, written before its first run: f32 on both sides, the
+# BN statistics summed across ranks (E[x^2] - mean^2) against cuDNN's
+# one-process BN and B=8 convolutions against B=16 ones.
+DP_LOSS_RTOL = (1e-4, 1e-3)      # step 1, step 2
+# ||theta_dp - theta_1p|| / ||theta_1p - theta_0|| over all parameters
+# after steps 1 and 2. Step 2's 5e-2 was written before the first run;
+# step 1's after: with cuDNN deterministic (one process then repeats
+# itself exactly) the ranks read 0.0057 / 0.0253, in the encoder's early
+# conv weights; ranks with local BN statistics read 0.87 / 0.75, and the
+# phase checks that they fail both bounds.
+DP_UPDATE_RTOL = (2e-2, 5e-2)
+DP_DICE_ATOL = 1e-6
+DP_TIMED_STEPS = 10
+DP_CHILD_TIMEOUT = 600
+
+DP_TRAIN_CHILD = r"""
+import json, sys
+import torch
+import chip_smoke as cs
+from stf_unet_tpu_torch.cli import train as train_cli
+
+out, argv = sys.argv[1], sys.argv[2:]
+seen = {}
+wrapped = train_cli.data_parallel
+
+
+def data_parallel(model, group):
+    ddp = wrapped(model, group)
+    seen.update(backend=torch.distributed.get_backend(), world=group.world,
+                synced_bn=sum(getattr(m, "data_group", None) is not None
+                              for m in model.modules()),
+                wrapper=type(ddp).__name__)
+    return ddp
+
+
+train_cli.data_parallel = data_parallel
+kernels = cs.reset_counts()
+result = train_cli.run(argv)
+json.dump({"epochs": result["epochs"], "steps": result["steps"],
+           "test_dice": result["test"]["dice"], "group": seen,
+           "launches": {n: f.launches for n, f in kernels.items()}},
+          open(out, "w"))
+"""
+
+DP_RANK_CHILD = r"""
+import json, sys
+import torch
+import chip_smoke as cs
+from stf_unet_tpu_torch.core import distributed, mesh as mesh_lib
+
+data, out, rank, world, port, variant = (
+    sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+    sys.argv[5], sys.argv[6])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda", 0)
+distributed.initialize(f"localhost:{port}", world, rank, device=dev,
+                       backend="gloo" if world > 1 else "nccl")
+group = mesh_lib.create_mesh(world, dev)
+result = {}
+if world == 1:  # the solo child: (c), then (b)'s one-process side
+    if variant == "synced":
+        result["step_ms"] = cs.dp_step_times(data, group)
+    if variant != "synced_bn":  # that one keeps the group's BN at world 1
+        group = None
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.use_deterministic_algorithms(True, warn_only=True)
+kernels = cs.reset_counts()
+result.update(cs.dp_fixed_steps(data, group, out,
+                                local_bn=variant == "local_bn"))
+result["launches"] = {n: f.launches for n, f in kernels.items()}
+json.dump(result, open(out + ".json", "w"))
+distributed.shutdown()
+"""
+
+
+def dp_fixed_steps(data: str, group, out: str, device="cuda",
+                   local_bn: bool = False) -> dict:
+    """(b) on one side: the seeded full-width STF-LSTM-UNet (f32) evaluated
+    on the val split (sharded over the ranks, at batch 1), then DP_STEPS
+    steps on the tree's first batch of TRAIN_BATCH (this rank's rows of
+    it); the losses, the metrics, and rank 0's parameters at the start
+    and after every step saved to `out`. `local_bn` (the control) leaves
+    each rank's BNs on its own rows."""
+    import torch
+
+    from stf_unet_tpu_torch.core import mesh as mesh_lib
+    from stf_unet_tpu_torch.core.config import (DataConfig, ModelConfig,
+                                                OptimConfig)
+    from stf_unet_tpu_torch.core.prng import augment_generator
+    from stf_unet_tpu_torch.data.index import DatasetIndex
+    from stf_unet_tpu_torch.data.loader import Batch, HostLoader
+    from stf_unet_tpu_torch.data.transforms import TrainAugment
+    from stf_unet_tpu_torch.models.registry import create_model
+    from stf_unet_tpu_torch.train.loop import (eval_batches_from_index,
+                                               evaluate, train_step)
+    from stf_unet_tpu_torch.train.state import (TrainState, data_parallel,
+                                                make_optimizer)
+
+    rank, world = (group.rank, group.world) if group else (0, 1)
+    dev = group.device if group else torch.device(device)
+    cfg = DataConfig(data_path=data, use_subtraction=True,
+                     base_size=TRAIN_SRC, crop_size=TRAIN_CROP)
+    seqs = cfg.resolved_sequence_types
+    host = next(iter(HostLoader(DatasetIndex(data, "train", seqs),
+                                TRAIN_BATCH, shuffle=False, prefetch=0,
+                                verbose=False).epoch(0)))
+    if group is not None:
+        host = Batch(*mesh_lib.shard_batch(
+            group, (host.frames, host.masks, host.sizes)))
+    torch.manual_seed(0)
+    model = create_model(ModelConfig(model="stflstm")).to(dev)
+    ddp = data_parallel(model, group) if group is not None else None
+    if local_bn:
+        for m in model.modules():
+            if getattr(m, "data_group", None) is not None:
+                m.data_group = None
+    t0 = time.perf_counter()
+    metrics = evaluate(model, eval_batches_from_index(
+        DatasetIndex(data, "val", seqs), cfg, host_index=rank,
+        num_hosts=world), 2, data_cfg=cfg, device=dev,
+        reduce_across_processes=group is not None)
+    eval_s = time.perf_counter() - t0
+    start = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    state = TrainState(model, make_optimizer(OptimConfig(eps=DP_EPS), model,
+                                             dev), group=group, ddp=ddp)
+    augment = TrainAugment(cfg, rank, world)
+    losses, params = [], [start]
+    t0 = time.perf_counter()
+    for s in range(DP_STEPS):
+        loss, _ = train_step(state, augment, host, augment_generator(0, 0, s),
+                             lambda _: DP_LR, 2, dev)
+        losses.append(loss.item())
+        params.append({n: p.detach().cpu().clone()
+                       for n, p in model.named_parameters()})
+    steps_s = time.perf_counter() - t0
+    final = params[-1]
+    checksum = float(sum(p.double().abs().sum() for p in final.values()))
+    if rank == 0:
+        torch.save(params, out + ".pt")
+    return {"losses": losses, "confusion": metrics["confusion_matrix"]
+            .tolist(), "dice": metrics["dice"], "checksum": checksum,
+            "eval_s": eval_s, "steps_s": steps_s}
+
+
+def dp_step_times(data: str, group) -> dict:
+    """(c): ms per bf16 TRAIN_BATCH step on one fixed batch (CUDA events
+    over DP_TIMED_STEPS back-to-back steps) of a model with no group and
+    of one under DDP with synced BN in `group`, in the order plain, DDP,
+    DDP, plain; then one torch.profiler step of each: kernel time, the
+    wall, and the kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stf_unet_tpu_torch.core.prng import augment_generator
+    from stf_unet_tpu_torch.train.loop import train_step
+    from stf_unet_tpu_torch.train.state import data_parallel
+
+    dev = group.device
+    runs = {}
+    for kind in ("plain", "ddp"):
+        state, augment, host = train_objects(data, torch.bfloat16, dev,
+                                             TRAIN_BATCH)
+        if kind == "ddp":
+            state.group = group
+            state.ddp = data_parallel(state.model, group)
+        runs[kind] = (state, augment, host)
+
+    def step(kind):
+        state, augment, host = runs[kind]
+        return lambda: train_step(state, augment, host,
+                                  augment_generator(0, 0, 0),
+                                  lambda _: DP_LR, 2, dev)
+
+    times = {"plain": [], "ddp": []}
+    for kind in ("plain", "ddp", "ddp", "plain"):
+        times[kind].append(cuda_ms(step(kind), iters=DP_TIMED_STEPS))
+    views = {}
+    for kind in ("plain", "ddp"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(kind)()[0].item()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(dev_ms(e) for e in kernels)
+        views[kind] = {
+            "wall_ms": wall, "kernel_ms": busy if busy else "not measured",
+            "launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                             "ms": dev_ms(e)}
+                            for e in sorted(kernels, key=dev_ms,
+                                            reverse=True)[:10]]}
+    return {**times, "ddp_over_plain": (sum(times["ddp"])
+                                        / sum(times["plain"])),
+            "profiled": views}
+
+
+def _run_children(cmds, cwd: str, env=None) -> None:
+    """Start the commands together, wait for all (DP_CHILD_TIMEOUT s; on
+    expiry every one is killed), and fail on any non-zero exit."""
+    import signal
+
+    procs = [subprocess.Popen(c, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              start_new_session=True) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_CHILD_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    for p, out in zip(procs, outs):
+        print(out[-3000:], flush=True)
+        check(p.returncode == 0, f"data-parallel child failed "
+                                 f"(exit {p.returncode}): {out[-3000:]}")
+
+
+def data_parallel_phase(tmpdir: str, data: str) -> dict:
+    """21. (a), (b) and (c) above, each in child processes of this one.
+    Returns the launch counts of (a) and of (b)'s two ranks."""
+    import math
+
+    import torch
+
+    from stf_unet_tpu_torch.core.distributed import free_port
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    # (a) cli/train --multihost at world 1, torchrun's environment
+    out_a = os.path.join(tmpdir, "dp_train.json")
+    weights = os.path.join(tmpdir, "weights_dp")
+    env = {**os.environ, "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port()), "RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}
+    _run_children([[sys.executable, "-c", DP_TRAIN_CHILD, out_a,
+                    "--data-path", data, "--model", "stflstm",
+                    "--amp", "true", "--use-subtraction", "--multihost",
+                    "--batch-size", str(TRAIN_BATCH), "--epochs", "1",
+                    "--eval-batch-size", str(TRAIN_BATCH),
+                    "--data-base-size", str(TRAIN_SRC),
+                    "--data-crop-size", str(TRAIN_CROP),
+                    "--save-dir", weights,
+                    "--output-dir", os.path.join(tmpdir, "out_dp"),
+                    "--print-freq", "1"]], here, env)
+    with open(out_a) as f:
+        a = json.load(f)
+    losses = [e["train_loss"] for e in a["epochs"]]
+    check(all(math.isfinite(v) for v in losses) and a["steps"] >= 4,
+          f"--multihost run: losses {losses}, steps {a['steps']}")
+    check(a["group"] == {"backend": "nccl", "world": 1, "synced_bn": 44,
+                         "wrapper": "DistributedDataParallel"},
+          f"--multihost run engaged {a['group']}")
+    check(os.path.isfile(os.path.join(weights, "stflstm_latest_model.pth")),
+          "--multihost run wrote no checkpoint")
+    for name in TRAIN_KERNELS:
+        check(a["launches"][name] > 0, f"{name} never launched in the "
+                                       f"--multihost child")
+    print(json.dumps({"data_parallel_multihost": {
+        **a, "losses": losses}}), flush=True)
+
+    # (b) two gloo ranks on the card, the same with local BN statistics
+    # (the control the bound must catch), then (c) with the one-process
+    # side, and that side again (the card's run-to-run spread)
+    def two_ranks(variant):
+        port = str(free_port())
+        outs = [os.path.join(tmpdir, f"dp_{variant}{r}") for r in range(2)]
+        _run_children([[sys.executable, "-c", DP_RANK_CHILD, data, outs[r],
+                        str(r), "2", port, variant] for r in range(2)], here)
+        return outs
+
+    def one_process(variant):
+        out = os.path.join(tmpdir, f"dp_solo_{variant}")
+        _run_children([[sys.executable, "-c", DP_RANK_CHILD, data, out, "0",
+                        "1", str(free_port()), variant]], here)
+        return out
+
+    outs, local = two_ranks("synced"), two_ranks("local_bn")
+    solo = one_process("synced")
+    ranks = dp_compare(outs, solo, {
+        "local_bn": local[0], "repeat": one_process("repeat"),
+        "synced_bn_1proc": one_process("synced_bn")})
+    with open(solo + ".json") as f:
+        step_ms = json.load(f)["step_ms"]
+    print(json.dumps({"data_parallel_step_ms": {
+        **step_ms, "batch": TRAIN_BATCH, "dtype": "bf16",
+        "steps": DP_TIMED_STEPS, "order": "plain, ddp, ddp, plain",
+        "phase_wall_s": time.perf_counter() - t_phase}}), flush=True)
+    return {name: a["launches"][name] + sum(r["launches"][name]
+                                            for r in ranks)
+            for name in counters()}
+
+
+def dp_gaps(got: list, ref: list) -> dict:
+    """The distance of parameter lists `got` from `ref` (each: the start,
+    then after every step) after each step, relative to ref's update
+    from the start, and the leaves that carry the most of the last
+    step's squared distance."""
+    def sq(a, b):
+        return float((a.double() - b.double()).pow(2).sum())
+
+    by_step = [(sum(sq(got[k][n], w) for n, w in ref[k].items())
+                / sum(sq(w, ref[0][n]) for n, w in ref[k].items())) ** 0.5
+               for k in range(1, len(ref))]
+    diff = {n: sq(got[-1][n], w) for n, w in ref[-1].items()}
+    total = sum(diff.values())
+    top = sorted(diff, key=diff.get, reverse=True)[:8]
+    return {"by_step": by_step, "leaves": [
+        {"name": n, "share": diff[n] / total if total else 0.0,
+         "rel": (diff[n] / max(sq(ref[-1][n], ref[0][n]), 1e-300)) ** 0.5,
+         "update_l2": sq(ref[-1][n], ref[0][n]) ** 0.5} for n in top]}
+
+
+def dp_compare(outs, solo: str, controls: dict) -> list:
+    """(b)'s checks: the two ranks' results (files `outs`) against the
+    one process's (`solo`), and the controls' (`controls`: name -> file):
+    "local_bn", ranks with local BN statistics, which the bound must
+    catch; "repeat", the one process again; "synced_bn_1proc", one
+    process B=16 through the synced BN at world 1, which parts the BN's
+    arithmetic from the batch split. Prints the line; returns the
+    ranks'."""
+    import torch
+
+    ranks = []
+    for o in outs:
+        with open(o + ".json") as f:
+            ranks.append(json.load(f))
+    with open(solo + ".json") as f:
+        one = json.load(f)
+    ref = torch.load(solo + ".pt", weights_only=True)
+
+    def params(path):
+        return torch.load(path + ".pt", weights_only=True)
+
+    dp = params(outs[0])
+    gaps = dp_gaps(dp, ref)
+    split_only = dp_gaps(dp, params(controls["synced_bn_1proc"]))
+    controls = {name: dp_gaps(params(path), ref)
+                for name, path in controls.items()}
+    controls["2ranks_vs_synced_bn_1proc"] = split_only
+    rel = gaps["by_step"][-1]
+    update = sum(float((w.double() - ref[0][n].double()).pow(2).sum())
+                 for n, w in ref[-1].items()) ** 0.5
+    start_equal = all(torch.equal(dp[0][n], w) for n, w in ref[0].items())
+    loss_rel = [abs(g - w) / abs(w)
+                for g, w in zip(ranks[0]["losses"], one["losses"])]
+    line = {"losses_2ranks": ranks[0]["losses"], "losses_1proc":
+            one["losses"], "loss_rel": loss_rel,
+            "update_rel_l2": rel, "update_rel_l2_by_step": gaps["by_step"],
+            "update_l2": update, "leaves": gaps["leaves"],
+            "controls": controls, "start_equal": start_equal,
+            "rank_checksums": [r["checksum"] for r in ranks],
+            "confusion_2ranks": ranks[0]["confusion"],
+            "confusion_1proc": one["confusion"],
+            "dice_2ranks": ranks[0]["dice"], "dice_1proc": one["dice"],
+            "steps_s": [r["steps_s"] for r in ranks] + [one["steps_s"]],
+            "tolerance": {"loss_rtol": DP_LOSS_RTOL,
+                          "update_rtol": DP_UPDATE_RTOL,
+                          "dice_atol": DP_DICE_ATOL},
+            "launches_by_rank": [r["launches"] for r in ranks]}
+    print(json.dumps({"data_parallel_gloo_world2": line}), flush=True)
+    check(start_equal, "the ranks started from other weights")
+    check(ranks[0]["checksum"] == ranks[1]["checksum"],
+          "the two ranks hold different parameters")
+    for i, (rel, tol) in enumerate(zip(loss_rel, DP_LOSS_RTOL)):
+        check(rel <= tol, f"step {i + 1} loss {rel:.3g} relative from one "
+                          f"process (tolerance {tol})")
+    for i, tol in enumerate(DP_UPDATE_RTOL):
+        got, control = gaps["by_step"][i], controls["local_bn"]["by_step"][i]
+        check(got <= tol, f"step {i + 1}: parameters {got:.3g} of the "
+                          f"update from one process (tolerance {tol})")
+        check(control > tol, f"step {i + 1}: ranks with local BN "
+                             f"statistics came {control:.3g} of the update "
+                             f"from one process, within the bound {tol}")
+    for r in ranks:
+        check(r["confusion"] == one["confusion"],
+              f"val confusion {r['confusion']} != {one['confusion']}")
+        check(abs(r["dice"] - one["dice"]) <= DP_DICE_ATOL,
+              f"val dice {r['dice']} vs {one['dice']}")
+        for name in TRAIN_KERNELS:
+            check(r["launches"][name] > 0, f"{name} never launched in a "
+                                           f"gloo rank")
+    return ranks
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3492,6 +3911,10 @@ def main() -> int:
         deploy["int8"], int8_forwards = int8_phase(
             data, stf_weights, unet_weights,
             os.path.join(tmpdir, "weights_extras"))
+        torch.cuda.empty_cache()
+        # data parallelism: --multihost at world 1, two gloo ranks, DDP's
+        # cost on one card
+        deploy["data_parallel"] = data_parallel_phase(tmpdir, data)
     for name in ("quant_patches", "quant_epilogue"):
         agg[name]["device_ms"] = int8_forwards["stflstm"]["int8_split_b8"][
             f"{name}_ms"]

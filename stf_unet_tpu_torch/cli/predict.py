@@ -116,7 +116,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     args = p.parse_args(argv)
     if args.data_parallel != 1:
         p.error("--data-parallel is not ported to the PyTorch package yet "
-                "(ROADMAP.md §1, 'data parallelism')")
+                "(ROADMAP.md §1, 'data-parallel inference')")
     return args
 
 

@@ -47,7 +47,7 @@ from stf_unet_tpu_torch.serve.http import SegmentationServer
 
 # Flags of the JAX server whose features the port has not implemented
 # yet -> the ROADMAP.md item (§1) that brings them.
-UNPORTED = {"--data-parallel": "data parallelism"}
+UNPORTED = {"--data-parallel": "data-parallel inference"}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:

@@ -8,6 +8,7 @@ Usage: python -m stf_unet_tpu_torch.cli.test --model unet
        [--pred-mode argmax|sigmoid] [--tiled [--tile-overlap 0.5]]
        [--tta] [--per-patient] [--surface-metrics] [--threshold-sweep]
        [--data-pack <pack root>] [--dtype f32|bf16] [--device cuda|cpu]
+       [--data-parallel N]
 
 Loads the best (else latest) checkpoint of `--model-dir`
 (`<model>_{best,latest}_model<_pk>.pth`, as cli/train writes them), runs
@@ -17,6 +18,14 @@ binary path (sigmoid > 0.5 on channel 0, ref:test.py:161-172). The eval
 metrics are argmax-based in both modes, as the reference's evaluate() is
 (ref:train_and_eval.py:331). Architecture and data settings come from the
 checkpoint (cli/common.restore_for_inference); explicit flags win.
+
+`--data-parallel N` (0 = every visible GPU) spawns N processes joined by
+a process group (core/distributed.spawn_group), one device each: every
+rank restores the checkpoint and evaluates its shard of the test records
+(records[rank::N]) at any batch size, the metrics are summed over the
+ranks, and rank 0 gathers the outputs in record order
+(train/loop.gather_eval_outputs) and writes the renders and reports.
+With --tiled the tiles are not split: rank 0 runs the pass alone.
 """
 
 from __future__ import annotations
@@ -34,14 +43,13 @@ import torch.nn.functional as F
 
 from stf_unet_tpu_torch.cli.common import (DTYPES, checkpoint_path,
                                            restore_for_inference)
+from stf_unet_tpu_torch.core import distributed
+from stf_unet_tpu_torch.core import mesh as mesh_lib
+from stf_unet_tpu_torch.core.config import resolve_device
 from stf_unet_tpu_torch.data.index import DatasetIndex
-from stf_unet_tpu_torch.train.loop import eval_batches_from_index, evaluate
+from stf_unet_tpu_torch.train.loop import (eval_batches_from_index,
+                                           evaluate, gather_eval_outputs)
 from stf_unet_tpu_torch.viz.overlay import save_overlay
-
-# Flags of the JAX CLI whose features the port has not implemented yet ->
-# the ROADMAP.md item (§1) that brings them, refused unless left at the
-# JAX CLI's default (one device).
-UNPORTED = {"--data-parallel": ("data parallelism", int, 1)}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -81,6 +89,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--batch-size", type=int, default=1,
                    help="eval batch size (same-shape samples grouped; the "
                         "reference evaluates at 1)")
+    p.add_argument("--data-parallel", type=int, default=1,
+                   help="shard the test records over N processes, one "
+                        "device each (0 = every visible GPU; identical "
+                        "metrics and reports)")
     p.add_argument("--tta", action="store_true",
                    help="flip test-time augmentation: average logits over "
                         "{id, hflip, vflip, hvflip} (ops/tta.py; composes "
@@ -103,15 +115,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="compute dtype (parameters stay float32)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' only when asked for")
-    for flag, (_, typ, default) in UNPORTED.items():
-        p.add_argument(flag, type=typ, default=default,
-                       help=argparse.SUPPRESS)
-    args = p.parse_args(argv)
-    for flag, (item, _, default) in UNPORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) != default:
-            p.error(f"{flag} is not ported to the PyTorch package yet "
-                    f"(ROADMAP.md §1, '{item}')")
-    return args
+    return p.parse_args(argv)
 
 
 def predict_mask(logits: np.ndarray, mode: str = "argmax") -> np.ndarray:
@@ -123,17 +127,26 @@ def predict_mask(logits: np.ndarray, mode: str = "argmax") -> np.ndarray:
     return np.argmax(logits, axis=-1)
 
 
-def test(args: argparse.Namespace) -> dict:
-    """The test pass; the returned metrics carry "seconds": {"restore":
-    checkpoint to model on the device, "test": the pass itself}."""
+def test(args: argparse.Namespace, group=None) -> dict:
+    """The test pass, in this process or (--data-parallel) as one rank
+    of `group`; a spawned group returns rank 0's metrics. They carry
+    "seconds": {"restore": checkpoint to model on the device, "test": the
+    pass itself}."""
+    if group is None and args.data_parallel != 1:
+        world = mesh_lib.data_world(args.data_parallel,
+                                    resolve_device(args.device))
+        if world > 1:
+            return distributed.spawn_group(test, world, args.device, args)
+    is_main = group is None or group.is_main
+    device = group.device if group is not None else torch.device(
+        args.device)
     t0 = time.perf_counter()
     path = checkpoint_path(args.model_dir, args.model, args.use_pk_maps)
     model, data_cfg, model_cfg, _ = restore_for_inference(
         args.model, path, use_subtraction=args.use_subtraction,
         use_pk_maps=args.use_pk_maps, num_classes=args.num_classes,
         base_c=args.base_c, crop_size=args.crop_size,
-        mask_format=args.mask_format, dtype=args.dtype, device=args.device)
-    device = torch.device(args.device)
+        mask_format=args.mask_format, dtype=args.dtype, device=device)
     num_classes = model_cfg.total_classes
     use_pk = model_cfg.use_pk_maps
     print(f"model_path: {path}")
@@ -165,7 +178,12 @@ def test(args: argparse.Namespace) -> dict:
                          "probability, and the tiled predictor emits "
                          "argmax masks only")
 
+    if group is not None:
+        print(("tiled pass on rank 0 of " if args.tiled
+               else "test records sharded over ") + f"{group.world} ranks")
     if args.tiled:
+        if not is_main:
+            return {}
         metrics = _test_tiled(args, model, data_cfg, num_classes,
                               test_index, device, pack)
         metrics["seconds"] = {"restore": restore_s,
@@ -173,12 +191,19 @@ def test(args: argparse.Namespace) -> dict:
         return metrics
 
     print("Running inference on test set...")
+    shard = ({"host_index": group.rank, "num_hosts": group.world}
+             if group is not None else {})
     metrics = evaluate(
         model, eval_batches_from_index(test_index, data_cfg,
                                        use_pk_maps=use_pk,
                                        batch_size=args.batch_size,
-                                       pack=pack),
-        num_classes, data_cfg=data_cfg, device=device, collect_outputs=True)
+                                       pack=pack, **shard),
+        num_classes, data_cfg=data_cfg, device=device, collect_outputs=True,
+        reduce_across_processes=group is not None)
+    if group is not None:
+        metrics = gather_eval_outputs(group, metrics)
+    if not is_main:  # rank 0 writes the renders and reports
+        return metrics
 
     os.makedirs(args.output_dir, exist_ok=True)
     idx = 0

@@ -9,6 +9,7 @@ ref:train.py:124-401).
         [--data-pack <pack root>] [--data-cache-ram] \\
         [--data-device-prefetch N] [--stop-after-steps N] \\
         [--data-elastic-alpha A --data-brightness B ...] \\
+        [--data-parallel N | --multihost] \\
         [--device cuda|cpu] [--resume latest [--test-only]] ...
 
 Optional PK map fitting (--generate-pk-maps, pk/maps.py) -> dataset
@@ -21,8 +22,26 @@ stop; none with --test-only) -> a test-set pass with the best weights
 that prints its metrics and writes one original / ground truth /
 prediction render per test slice to <output_dir>/test_results<_pk>.
 SIGTERM, a first SIGINT or --stop-after-steps end the run at the next
-step with a resumable checkpoint (train/preempt.py). One device; CUDA
-unless --device cpu.
+step with a resumable checkpoint (train/preempt.py). CUDA unless
+--device cpu.
+
+Devices: one process on one device, unless data parallelism is asked
+for. `--data-parallel N > 1` spawns N local processes joined by a
+process group on a free localhost port, one device each (cuda:r, or the
+CPU with --device cpu, gloo); `--data-parallel 0` (the default) takes
+every visible GPU, so one visible GPU runs as one process; N beyond the
+visible GPUs raises. `--multihost` joins the group that torchrun
+describes in the environment (NCCL on cuda:LOCAL_RANK). In a group the
+batch is global (padded to a multiple of the world; each rank loads its
+B / world rows of a host-sharded loader, drop_last), the BNs take the
+global statistics and DistributedDataParallel all-reduces the
+gradients; every rank evaluates its shard of the val set and all get the
+same summed metrics, so the early-stop and best-checkpoint decisions
+agree; only rank 0 writes results files, checkpoints and the test
+pass's renders. --generate-pk-maps fits the maps before the ranks spawn
+(--data-parallel), or on rank 0 while the others wait up to
+PK_MAPS_WAIT (--multihost). The group is left at the end and on error; a
+rank that raises takes the others down with a non-zero exit.
 """
 
 from __future__ import annotations
@@ -38,6 +57,8 @@ import numpy as np
 import torch
 
 from stf_unet_tpu_torch.core import config as config_lib
+from stf_unet_tpu_torch.core import distributed
+from stf_unet_tpu_torch.core import mesh as mesh_lib
 from stf_unet_tpu_torch.core.config import TrainConfig, resolve_device
 from stf_unet_tpu_torch.core.prng import STREAM_INIT, stream_seed
 from stf_unet_tpu_torch.cli.common import (load_reference_checkpoint,
@@ -54,8 +75,8 @@ from stf_unet_tpu_torch.train.loop import (CachedEvalBatches,
                                            evaluate, train_one_epoch)
 from stf_unet_tpu_torch.train.preempt import PreemptionGuard
 from stf_unet_tpu_torch.train.schedule import warmup_poly_schedule
-from stf_unet_tpu_torch.train.state import (TrainState, ema_copy,
-                                            make_optimizer)
+from stf_unet_tpu_torch.train.state import (TrainState, data_parallel,
+                                            ema_copy, make_optimizer)
 from stf_unet_tpu_torch.viz.comparison import save_comparison
 
 
@@ -129,27 +150,72 @@ def _check_resume(meta_cfg: str, k: int, use_ema: bool) -> None:
 
 
 def main(cfg: TrainConfig) -> dict:
+    """Train as the flags say: in this process, in a spawned group of
+    --data-parallel N local processes (returning rank 0's result), or as
+    one rank of torchrun's group under --multihost."""
     device = resolve_device(cfg.device)
+    if cfg.multihost:
+        distributed.initialize(device=device)  # raises: no silent fallback
+        try:
+            return _train(cfg, group=mesh_lib.create_mesh(
+                cfg.data_parallel, device))
+        finally:
+            distributed.shutdown()
+    world = mesh_lib.data_world(cfg.data_parallel, device)
+    if world > 1:
+        # the maps first, in this process, so no rank waits on a collective
+        # while they are fitted
+        if cfg.generate_pk_maps:
+            _generate_pk_maps(cfg, device)
+        return distributed.spawn_group(_train, world, device, cfg, True)
+    return _train(cfg, group=None)
+
+
+# How long the other ranks of a --multihost group wait for rank 0 to fit
+# the PK maps (about half a second a slice on an H100), in place of the
+# group's collective timeout.
+PK_MAPS_WAIT = datetime.timedelta(hours=24)
+
+
+def _generate_pk_maps(cfg: TrainConfig, device) -> None:
+    print("Generating PK parameter maps...")
+    from stf_unet_tpu_torch.pk.maps import generate_pk_maps_for_dataset
+    generate_pk_maps_for_dataset(cfg.data.data_path, device=device)
+    print("PK parameter maps generation completed")
+
+
+def _train(cfg: TrainConfig, maps_done: bool = False,
+           group: Optional[mesh_lib.DataGroup] = None) -> dict:
+    """The run, in one process (group None) or as one rank of `group`;
+    `maps_done` when the PK maps were fitted before the group started."""
+    device = group.device if group is not None else resolve_device(
+        cfg.device)
+    host_index, num_hosts = ((group.rank, group.world) if group is not None
+                             else (0, 1))
+    is_main = host_index == 0
     set_precision_policy()
     print(f"PyTorch {torch.__version__} | device: "
           + (torch.cuda.get_device_name(device) if device.type == "cuda"
-             else "cpu"))
+             else "cpu")
+          + (f" | rank {host_index} of {num_hosts} "
+             f"({torch.distributed.get_backend()})" if group is not None
+             else ""))
     num_classes = cfg.model.total_classes  # +1 background (ref:train.py:144)
     tag_suffix = cfg.tag_suffix
 
     results_file: Optional[str] = None
-    if not cfg.silent:
+    if not cfg.silent and is_main:  # one writer
         os.makedirs(cfg.output_dir, exist_ok=True)
         stamp = datetime.datetime.now().strftime("%m%d-%H%M")
         results_file = os.path.join(
             cfg.output_dir,
             f"{cfg.model.model}_results_{stamp}{tag_suffix}.txt")
 
-    if cfg.generate_pk_maps:
-        print("Generating PK parameter maps...")
-        from stf_unet_tpu_torch.pk.maps import generate_pk_maps_for_dataset
-        generate_pk_maps_for_dataset(cfg.data.data_path, device=device)
-        print("PK parameter maps generation completed")
+    if cfg.generate_pk_maps and not maps_done:
+        if is_main:
+            _generate_pk_maps(cfg, device)
+        # the maps exist before any rank indexes them
+        mesh_lib.barrier(group, timeout=PK_MAPS_WAIT)
 
     seq_types = cfg.data.resolved_sequence_types
     print(f"Using sequence types: {list(seq_types)}")
@@ -163,7 +229,7 @@ def main(cfg: TrainConfig) -> dict:
                          "layout / --use-pk-maps without generated pk_maps)")
 
     model_cfg = dataclasses.replace(cfg.model, time_steps=len(seq_types))
-    batch_size = cfg.batch_size
+    batch_size = cfg.batch_size  # the GLOBAL batch
     if batch_size == 0:  # --batch-size auto
         from stf_unet_tpu_torch.train.autobatch import pick_batch_size
         t_total = len(seq_types) + (cfg.model.pk_channels
@@ -172,24 +238,39 @@ def main(cfg: TrainConfig) -> dict:
         probe_canvas = HostLoader(train_index, 1, shuffle=False,
                                   prefetch=0, verbose=False).canvas
         batch_size = pick_batch_size(
-            cfg, t_total, canvas=probe_canvas, device=device,
+            cfg, t_total, n_shards=num_hosts, canvas=probe_canvas,
+            device=device,
             budget_bytes=int(cfg.auto_batch_budget_gb * 2**30) or None)
+        # every rank measured its own device: all take the smallest pick
+        batch_size = mesh_lib.agree_min(group, batch_size)
     if cfg.data.rotation_split:
         print("note: --data-rotation-split changes nothing here: K2 warps "
-              "every sample, rotated or not, in one launch")
+              "every sample, rotated or not, in one launch"
+              + (" (and the JAX package keeps it single-device)"
+                 if group is not None else ""))
+    if group is not None:
+        batch_size = mesh_lib.pad_batch_to_multiple(batch_size, num_hosts)
+        print(f"data parallelism: global batch {batch_size} = {num_hosts} "
+              f"ranks x {batch_size // num_hosts}")
+    local_batch = max(1, batch_size // num_hosts)
 
     train_pack = _open_pack(cfg, "train", required=True)
-    loader = HostLoader(train_index, batch_size, shuffle=True,
+    loader = HostLoader(train_index, local_batch, shuffle=True,
                         seed=cfg.seed, use_pk_maps=cfg.data.use_pk_maps,
+                        drop_last=group is not None,
                         prefetch=cfg.data.prefetch,
                         mask_format=cfg.data.mask_format,
-                        cache_ram=cfg.data.cache_ram, pack=train_pack)
-    augment = TrainAugment(cfg.data)
+                        cache_ram=cfg.data.cache_ram, pack=train_pack,
+                        host_index=host_index, num_hosts=num_hosts)
+    augment = TrainAugment(cfg.data, host_index, num_hosts)
     torch.manual_seed(stream_seed(cfg.seed, STREAM_INIT))
     dtype = torch.bfloat16 if cfg.amp else torch.float32
     if cfg.amp:
         print("bf16 compute, float32 parameters")
     model = create_model(model_cfg, dtype=dtype).to(device)
+    # synced BN and DDP (rank 0's weights on every rank) before the
+    # optimizer and the EMA copy see the parameters
+    ddp = data_parallel(model, group) if group is not None else None
     n_params = sum(p.numel() for p in model.parameters())
     print(f"Model {cfg.model.model}: {n_params / 1e6:.1f}M params")
 
@@ -208,7 +289,7 @@ def main(cfg: TrainConfig) -> dict:
     state = TrainState(model, make_optimizer(cfg.optim, model, device),
                        grad_accum=k, ema=ema_copy(model) if use_ema else None,
                        ema_decay=cfg.optim.ema_decay,
-                       ema_warmup=cfg.optim.ema_warmup)
+                       ema_warmup=cfg.optim.ema_warmup, group=group, ddp=ddp)
     if use_ema:
         print(f"EMA weights: decay {cfg.optim.ema_decay}"
               f"{' (warmup ramp)' if cfg.optim.ema_warmup else ''} "
@@ -245,11 +326,12 @@ def main(cfg: TrainConfig) -> dict:
             pack.validate(index, mask_format=cfg.data.mask_format,
                           use_pk_maps=cfg.data.use_pk_maps)
 
-    def val_batches():
+    def val_batches():  # each rank its shard of the val set
         return eval_batches_from_index(val_index, cfg.data,
                                        use_pk_maps=cfg.data.use_pk_maps,
                                        batch_size=cfg.eval_batch_size,
-                                       pack=val_pack)
+                                       pack=val_pack, host_index=host_index,
+                                       num_hosts=num_hosts)
 
     # with the RAM cache the val set decodes once, then replays its bytes
     cached_val = CachedEvalBatches(val_batches) if cfg.data.cache_ram \
@@ -260,7 +342,7 @@ def main(cfg: TrainConfig) -> dict:
     cfg_json = config_lib.config_to_json(cfg)
     epochs_run = []
     start_time = time.time()
-    guard = PreemptionGuard(1, cfg.stop_after_steps)
+    guard = PreemptionGuard(num_hosts, cfg.stop_after_steps, group=group)
     preempted = False
     try:
         for epoch in range(start_epoch,
@@ -287,7 +369,8 @@ def main(cfg: TrainConfig) -> dict:
                 metrics = evaluate(
                     state.model,
                     cached_val if cached_val is not None else val_batches(),
-                    num_classes, data_cfg=cfg.data, device=device)
+                    num_classes, data_cfg=cfg.data, device=device,
+                    reduce_across_processes=num_hosts > 1)
             dice = metrics["dice"]
             _print_metrics(metrics)
             epochs_run.append({"epoch": epoch, "train_loss": mean_loss,
@@ -314,8 +397,9 @@ def main(cfg: TrainConfig) -> dict:
                     best_dice = dice
                     ckpt.save("best", state, epoch=epoch, best_dice=dice,
                               config_json=cfg_json, seed=cfg.seed)
-                    print(f"New best model saved at epoch {epoch}, "
-                          f"Dice = {dice:.4f}")
+                    if is_main:
+                        print(f"New best model saved at epoch {epoch}, "
+                              f"Dice = {dice:.4f}")
             else:
                 ckpt.save(f"epoch{epoch}", state, epoch=epoch,
                           best_dice=best_dice, config_json=cfg_json,
@@ -333,14 +417,18 @@ def main(cfg: TrainConfig) -> dict:
         guard.uninstall()
 
     if preempted:
-        print(f"Preemption/stop honored: resumable checkpoint saved "
-              f"({ckpt.path(resume_kind)}); continue with --resume "
-              f"{resume_kind}")
+        if is_main:
+            print(f"Preemption/stop honored: resumable checkpoint saved "
+                  f"({ckpt.path(resume_kind)}); continue with --resume "
+                  f"{resume_kind}")
         return {"preempted": True, "best_dice": best_dice,
                 "epochs": epochs_run, "steps": state.step,
                 "batch_size": batch_size, "results_file": results_file}
     total_time = time.time() - start_time
     print(f"Training time {datetime.timedelta(seconds=int(total_time))}")
+    if not is_main:  # rank 0 alone runs the test pass and its renders
+        return {"best_dice": best_dice, "epochs": epochs_run,
+                "steps": state.step, "batch_size": batch_size}
 
     # ---- best-model test-set evaluation (ref:train.py:341-400) ----------
     print("Start evaluating best model on test set...")

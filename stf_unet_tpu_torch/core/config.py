@@ -166,6 +166,13 @@ class TrainConfig:
     save_dir: str = "./save_weights"
     output_dir: str = "./output"
     seed: int = 0
+    # Data-parallel ranks, one process per device: 0 = every visible GPU
+    # (one on the CPU), 1 = one process; N > 1 spawns N local processes
+    # (cli/train.py). More than the visible GPUs raises.
+    data_parallel: int = 0
+    # Join the process group that torchrun describes in the environment
+    # (core/distributed.py), one process per device.
+    multihost: bool = False
     # Where the run computes: CUDA unless the CPU is asked for.
     device: str = "cuda"
 
@@ -214,9 +221,7 @@ def resolve_device(device="cuda") -> torch.device:
 # Flags of the JAX package's trainer whose features the port has not
 # implemented yet -> the ROADMAP.md item (§1) that brings them.
 UNPORTED_FLAGS = {
-    "--multihost": "data parallelism",
-    "--data-parallel": "data parallelism",
-    "--spatial-parallel": "data parallelism",
+    "--spatial-parallel": "spatial parallelism",
     "--profile-dir": "long tail",
     "--nan-check": "long tail",
     "--jsonl-metrics": "long tail",

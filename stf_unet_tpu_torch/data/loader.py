@@ -197,7 +197,13 @@ class HostLoader:
     on a line of its own. cache_ram keeps each decoded sample after its
     first batch, so later epochs only stack; a `pack` (data/pack.py)
     serves every batch from its memory maps (its canvas wins, and the
-    cache is moot)."""
+    cache is moot).
+
+    Under data parallelism each of `num_hosts` ranks loads its own shard:
+    every rank draws the same seeded permutation and takes
+    order[host_index::num_hosts], cut to the common floor so that every
+    rank yields the same number of batches (`batch_size` is then the
+    rank's local batch)."""
 
     def __init__(self, index: DatasetIndex, batch_size: int, *,
                  shuffle: bool, seed: int = 0, use_pk_maps: bool = False,
@@ -205,9 +211,12 @@ class HostLoader:
                  canvas_multiple: int = 32, prefetch: int = 2,
                  mask_format: str = "binary",
                  use_native: Optional[bool] = None, cache_ram: bool = False,
-                 pack=None, verbose: bool = True):
+                 pack=None, verbose: bool = True, host_index: int = 0,
+                 num_hosts: int = 1):
         self.index = index
         self.batch_size = batch_size
+        self.host_index = host_index
+        self.num_hosts = num_hosts
         self.shuffle = shuffle
         self.seed = seed
         self.use_pk_maps = use_pk_maps
@@ -242,7 +251,8 @@ class HostLoader:
             ch, cw = self.canvas
             t = len(index.records[0].image_paths)
             per = (t + 1 + (3 if use_pk_maps else 0)) * ch * cw
-            print(f"RAM cache: ~{len(index) * per / 2**30:.2f} GiB of "
+            n = len(index) // num_hosts
+            print(f"RAM cache: ~{n * per / 2**30:.2f} GiB of "
                   f"decoded uint8 samples after the first epoch")
 
     def _probe_canvas(self) -> Tuple[int, int]:
@@ -261,7 +271,7 @@ class HostLoader:
         return (-(-max_h // cm) * cm, -(-max_w // cm) * cm)
 
     def __len__(self) -> int:
-        n = len(self.index)
+        n = len(self.index) // self.num_hosts
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -345,6 +355,9 @@ class HostLoader:
         if self.shuffle:
             rng = np.random.default_rng(self.seed + epoch_num)
             rng.shuffle(order)
+        if self.num_hosts > 1:
+            per_host = len(order) // self.num_hosts
+            order = order[self.host_index::self.num_hosts][:per_host]
         if self.drop_last:
             order = order[: len(self) * self.batch_size]
         chunks = [[int(i) for i in order[i:i + self.batch_size]]

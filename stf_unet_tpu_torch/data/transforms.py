@@ -127,18 +127,24 @@ def eval_preprocess(frames: np.ndarray, mask: np.ndarray, cfg: DataConfig,
 def _sample_params(gen: torch.Generator, min_size: int, max_size: int,
                    hflip_prob: float, vflip_prob: float, rotate_prob: float,
                    rotate_deg: float, crop: int, src_h: torch.Tensor,
-                   src_w: torch.Tensor):
+                   src_w: torch.Tensor,
+                   rows: Optional[Tuple[int, int]] = None):
     """Draw the augmentation parameters of a batch of samples: src_h /
     src_w are [B] CPU tensors; every result is a [B] float32 (flips: bool)
     CPU tensor. The distributions are the JAX package's (transforms.py:
     115-153): the short edge resizes to an integer r uniform in [min, max];
     flips and the rotate decision are Bernoulli; the angle is uniform in
-    [-deg, deg]; the crop offset is floor(u * (max_offset + 1))."""
+    [-deg, deg]; the crop offset is floor(u * (max_offset + 1)).
+    rows = (first, total): these B samples are rows [first, first + B) of
+    a global batch of `total`, whose draws are made and cut to them."""
     bsz = src_h.shape[0]
+    first, total = rows or (0, bsz)
+    mine = slice(first, first + bsz)
     f32 = torch.float32
-    r = torch.randint(min_size, max_size + 1, (bsz,), generator=gen)
-    u_hflip, u_vflip, u_rot, u_angle = torch.rand((4, bsz), generator=gen)
-    u_crop = torch.rand((2, bsz), generator=gen)
+    r = torch.randint(min_size, max_size + 1, (total,), generator=gen)[mine]
+    u_hflip, u_vflip, u_rot, u_angle = torch.rand(
+        (4, total), generator=gen)[:, mine]
+    u_crop = torch.rand((2, total), generator=gen)[:, mine]
     src_h, src_w = src_h.to(f32), src_w.to(f32)
     scale = r.to(f32) / torch.minimum(src_h, src_w)
     res_h = torch.round(src_h * scale)
@@ -208,12 +214,14 @@ def elastic_offsets(field: torch.Tensor, on: torch.Tensor, crop: int
 
 
 def photometric(v: torch.Tensor, factors: torch.Tensor, cfg: DataConfig,
-                noise_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                noise_gen: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Photometric jitter of [0, 1] frames v [B, T, H, W] (the JAX
     package's _photometric): factors [3, B] of brightness, contrast and
     gamma (each used only where its knob is on), one per sample shared by
     its frames; then additive N(0, noise_std) noise from `noise_gen` on
-    v's device, and a clip to [0, 1]."""
+    v's device (rows: drawn for the global batch and cut, as in
+    _sample_params), and a clip to [0, 1]."""
     def per_sample(f):
         return f.to(v.device, v.dtype).view(-1, 1, 1, 1)
 
@@ -225,16 +233,29 @@ def photometric(v: torch.Tensor, factors: torch.Tensor, cfg: DataConfig,
     if cfg.gamma_jitter > 0.0:
         v = torch.clamp(v, 1e-6, 1.0) ** per_sample(factors[2])
     if cfg.noise_std > 0.0:
-        v = v + torch.randn(v.shape, generator=noise_gen, device=v.device,
-                            dtype=v.dtype) * cfg.noise_std
+        first, total = rows or (0, v.shape[0])
+        noise = torch.randn((total,) + tuple(v.shape[1:]),
+                            generator=noise_gen, device=v.device,
+                            dtype=v.dtype)[first:first + v.shape[0]]
+        v = v + noise * cfg.noise_std
     return torch.clamp(v, 0.0, 1.0)
 
 
 class TrainAugment:
-    """Batched fused augmentation of a raw uint8 host batch."""
+    """Batched fused augmentation of a raw uint8 host batch.
 
-    def __init__(self, cfg: DataConfig):
+    Under data parallelism rank `shard_index` of `num_shards` holds rows
+    [rank * b, (rank + 1) * b) of the global batch; every draw (geometry,
+    elastic field, photometric factors, noise) is made for the global
+    batch and cut to those rows, as the JAX step draws over the
+    assembled global batch, so the ranks' slices are a one-process
+    run's rows."""
+
+    def __init__(self, cfg: DataConfig, shard_index: int = 0,
+                 num_shards: int = 1):
         self.cfg = cfg
+        self.shard_index = shard_index
+        self.num_shards = num_shards
         self.min_size = int(0.5 * cfg.base_size)   # ref:train.py:59
         self.max_size = int(1.2 * cfg.base_size)
         self.crop = cfg.crop_size
@@ -254,11 +275,16 @@ class TrainAugment:
             self.alpha = 1.0 / (255.0 * cfg.std)
             self.beta = -cfg.mean / cfg.std
 
+    def _rows(self, n: int) -> Tuple[int, int]:
+        """(first, total): a rank's n rows within the global draw."""
+        return self.shard_index * n, self.num_shards * n
+
     def _params(self, gen: torch.Generator, sizes: torch.Tensor):
         return _sample_params(
             gen, self.min_size, self.max_size, self.cfg.hflip_prob,
             self.cfg.vflip_prob, self.cfg.rotate_prob,
-            self.cfg.rotate_degrees, self.crop, sizes[:, 0], sizes[:, 1])
+            self.cfg.rotate_degrees, self.crop, sizes[:, 0], sizes[:, 1],
+            rows=self._rows(sizes.shape[0]))
 
     def _affine(self, params, device) -> Tuple[torch.Tensor, torch.Tensor]:
         params = [p.to(device).view(-1, 1, 1) for p in params]
@@ -278,9 +304,11 @@ class TrainAugment:
         gy, gx = self._affine(self._params(gen, sizes), device)
         if self.elastic:
             grid = self.cfg.elastic_grid
-            field = torch.randn((sizes.shape[0], 2, grid, grid),
-                                generator=gen) * self.cfg.elastic_alpha
-            on = (torch.rand((sizes.shape[0],), generator=gen)
+            first, total = self._rows(sizes.shape[0])
+            mine = slice(first, first + sizes.shape[0])
+            field = torch.randn((total, 2, grid, grid),
+                                generator=gen)[mine] * self.cfg.elastic_alpha
+            on = (torch.rand((total,), generator=gen)[mine]
                   < self.cfg.elastic_prob).to(torch.float32)
             dy, dx = elastic_offsets(field.to(device), on.to(device),
                                      self.crop)
@@ -291,7 +319,8 @@ class TrainAugment:
         """The jitter's factors [3, B] (each U(1-k, 1+k) for brightness,
         contrast, gamma) and, with noise, a generator on `device` seeded
         from `gen`."""
-        u = torch.rand((3, bsz), generator=gen)
+        first, total = self._rows(bsz)
+        u = torch.rand((3, total), generator=gen)[:, first:first + bsz]
         k = torch.tensor([self.cfg.brightness, self.cfg.contrast,
                           self.cfg.gamma_jitter]).view(3, 1)
         factors = 1.0 - k + 2.0 * k * u
@@ -335,7 +364,8 @@ class TrainAugment:
         if self.photometric:
             factors, noise_gen = self._photometric_draws(gen, bsz,
                                                          frames.device)
-            v = photometric(bil[:, :t], factors, self.cfg, noise_gen)
+            v = photometric(bil[:, :t], factors, self.cfg, noise_gen,
+                            rows=self._rows(bsz))
             bil = (torch.cat([v, bil[:, t:]], dim=1) - self.cfg.mean) \
                 / self.cfg.std
         return bil.unsqueeze(-1), near.to(torch.int64)

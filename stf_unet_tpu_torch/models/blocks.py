@@ -9,6 +9,7 @@ strict=True.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from stf_unet_tpu_torch.ops.conv import Conv2d, ConvTranspose2d
@@ -37,17 +38,27 @@ class TorchBatchNorm(nn.BatchNorm2d):
     mode) and must not see its version move. A layer corrects itself
     (two small launches) unless its model's forward hooks
     (`batch_running_var_updates`) hold it: then one foreach pass corrects
-    every layer of the model after the forward."""
+    every layer of the model after the forward.
+
+    Under data parallelism (`convert_sync_batchnorm`) a train-mode layer
+    takes its statistics over the global batch instead: flax's rule over
+    every rank's rows (_SyncBatchNorm), its running variance updated to
+    flax's rule directly, so the hooks leave it alone."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPS, momentum=BN_MOMENTUM)
         # None: correct itself; 0: held by the model's hooks, not run yet
         # in this forward; > 0: held, ran over this many rows
         self.held_rows = None
+        # the DataGroup (core/mesh.py) whose ranks share the statistics,
+        # or None for this process's rows alone
+        self.data_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if self.data_group is not None:
+            return self._synced_forward(x)
         rows = x.numel() // x.shape[1]
         if self.held_rows == 0:
             self.held_rows = rows
@@ -57,10 +68,102 @@ class TorchBatchNorm(nn.BatchNorm2d):
         self.running_var.data.lerp_(keep, 1.0 / rows)
         return y
 
+    def _synced_forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean, var, n = global_batch_stats(x)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.to(
+                self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.to(
+                self.running_var.dtype), alpha=m)
+            self.num_batches_tracked.add_(1)
+        return _SyncBatchNorm.apply(x, self.weight, self.bias, mean, var, n,
+                                    self.eps)
+
+
+def _channel_dims(x: torch.Tensor):
+    return [0] + list(range(2, x.dim()))
+
+
+def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return v.view([1, -1] + [1] * (x.dim() - 2))
+
+
+def global_batch_stats(x: torch.Tensor):
+    """(mean, biased variance, row count n) per channel of x [N, C, ...]
+    over the rows of every rank, as flax's BatchNorm computes them
+    (_compute_stats): the sums taken in float32 (float64 stays float64)
+    as x is read, mean and E[x^2] reduced in one stacked all-reduce with
+    the row count, var = max(0, E[x^2] - mean^2)."""
+    with torch.no_grad():
+        dt = torch.promote_types(x.dtype, torch.float32)
+        dims = _channel_dims(x)
+        c = x.shape[1]
+        total = x.sum(dims, dtype=dt)
+        buf = torch.cat([total, torch.linalg.vector_norm(
+            x, dim=dims, dtype=dt).square(), total.new_full(
+                (1,), x.numel() // c)])
+        if dist.is_initialized():
+            dist.all_reduce(buf)
+        n = buf[-1]
+        mean = buf[:c] / n
+        var = torch.clamp(buf[c:2 * c] / n - mean * mean, min=0.0)
+    return mean, var, n
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """y = (x - mean) / sqrt(var + eps) * weight + bias with the global
+    statistics (computed before, without a graph), as one eval-mode
+    batch_norm pass; the backward takes this rank's two per-channel sums
+    (Σ dy and Σ dy · xhat, the bias and weight gradients) in one
+    reduction pass, all-reduces them, and forms dx from them, the
+    derivative of the sum of every rank's loss, as nn.SyncBatchNorm's.
+    The weight and bias gradients stay this rank's
+    (DistributedDataParallel averages them with the others)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, var, n, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, weight, mean, var, n)
+        return torch.nn.functional.batch_norm(
+            x, mean, var, weight, bias, training=False, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, var, n = ctx.saved_tensors
+        invstd = torch.rsqrt(var + ctx.eps)
+        # the weight and bias gradients of a train-mode BN at these
+        # statistics are the two sums (its dx is not asked for)
+        _, grad_w, grad_b = torch.ops.aten.native_batch_norm_backward(
+            dy, x, weight, None, None, mean, invstd, True, ctx.eps,
+            [False, True, True])
+        sums = torch.stack([grad_b, grad_w]).to(mean.dtype)
+        if dist.is_initialized():
+            dist.all_reduce(sums)
+        scale = weight.to(mean.dtype) * invstd  # dy's factor
+        k2 = scale * invstd * sums[1] / n       # x's
+        shift = mean * k2 - scale * sums[0] / n
+        dx = torch.addcmul(_per_channel(shift, x), x, _per_channel(k2, x),
+                           value=-1.0)
+        dx.addcmul_(dy, _per_channel(scale, x))
+        return dx.to(x.dtype), grad_w, grad_b, None, None, None, None
+
+
+def convert_sync_batchnorm(model: nn.Module, group) -> nn.Module:
+    """Make every TorchBatchNorm of `model` take its train-mode statistics
+    over `group`'s global batch (in place; eval mode and the state_dict
+    are unchanged). The ranks' local batches must have equal row counts,
+    as the data-parallel loaders give them."""
+    for m in model.modules():
+        if isinstance(m, TorchBatchNorm):
+            m.data_group = group
+    return model
+
 
 def _hold_running_vars(model: nn.Module, args) -> None:
     layers = [m for m in model.modules() if isinstance(m, TorchBatchNorm)
-              and m.training and m.track_running_stats]
+              and m.training and m.track_running_stats
+              and m.data_group is None]
     if not layers:
         return
     for m in layers:

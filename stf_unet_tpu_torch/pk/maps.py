@@ -36,7 +36,7 @@ from stf_unet_tpu_torch.pk.tofts import ToftsQuadrature
 
 PARAM_NAMES = ("ktrans", "ve", "vp")
 _UNPORTED = "is not ported to the PyTorch package yet (ROADMAP.md §1, " \
-            "'data parallelism')"
+            "'data-parallel inference')"
 
 
 def fit_volume(images: np.ndarray, cfg: PKConfig,

@@ -115,7 +115,7 @@ def measure_step_memory(cfg, t_total: int, batch: int,
     return result
 
 
-def pick_batch_size(cfg, t_total: int,
+def pick_batch_size(cfg, t_total: int, n_shards: int = 1,
                     budget_bytes: Optional[int] = None,
                     frac: float = DEFAULT_BUDGET_FRAC,
                     probes: Tuple[int, int] = (2, 4),
@@ -125,10 +125,11 @@ def pick_batch_size(cfg, t_total: int,
                     measure: Optional[Callable[[int],
                                                Tuple[int, int]]] = None
                     ) -> int:
-    """The largest power-of-two batch whose train step fits `frac *
-    budget` (default: the card's free memory; raises where none is
-    reported). `measure(batch) -> (step_bytes, state_bytes)` defaults to
-    measure_step_memory on `device`."""
+    """The largest power-of-two PER-DEVICE batch whose train step fits
+    `frac * budget` (default: the card's free memory; raises where none
+    is reported), times `n_shards` (the data-parallel ranks) -> the
+    global batch. `measure(batch) -> (step_bytes, state_bytes)` defaults
+    to measure_step_memory on `device`."""
     if budget_bytes is None:
         budget_bytes = device_budget_bytes(device)
         if budget_bytes is None:
@@ -161,5 +162,7 @@ def pick_batch_size(cfg, t_total: int,
         batch *= 2
     print(f"auto batch: {per_sample / 2**20:.1f} MiB/sample + "
           f"{(state_bytes + fixed) / 2**30:.2f} GiB fixed against "
-          f"{frac * budget_bytes / 2**30:.2f} GiB budget -> {batch}")
-    return batch
+          f"{frac * budget_bytes / 2**30:.2f} GiB budget -> "
+          f"{batch}/device" + (f" x {n_shards} shards = {batch * n_shards}"
+                               if n_shards > 1 else ""))
+    return batch * n_shards

@@ -16,6 +16,13 @@ falls inside an accumulation window, "accum_grads" (the window's summed
 gradients, as the JAX save carries optax.MultiSteps' state). Every value
 is a tensor or a plain Python value, so it loads with
 torch.load(weights_only=True).
+
+Under data parallelism (the state's group) every rank calls save at the
+same point: rank 0 alone writes, then all wait at a barrier, so no rank
+reads a checkpoint before it exists; every rank restores the same file.
+The ranks' parameters, optimizer state and EMA are equal; a window's
+summed gradients are each rank's own (its micro-steps run under
+no_sync), so "accum_grads" then holds one dict per rank, in rank order.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from stf_unet_tpu_torch.core import mesh as mesh_lib
 from stf_unet_tpu_torch.train.state import TrainState
 
 
@@ -61,6 +69,14 @@ class CheckpointManager:
         step_in_epoch marks a mid-epoch (preemption) save: resume
         re-enters `epoch` at that step."""
         path = self.path(kind)
+        group = state.group
+        grads = state.accumulated_grads()
+        if group is not None and group.world > 1:
+            ranks = mesh_lib.gather_objects(group, grads)
+            grads = None if ranks[0] is None else ranks
+        if group is not None and not group.is_main:
+            mesh_lib.barrier(group)
+            return path
         payload = {
             "model": {k: v.detach().cpu()
                       for k, v in state.model.state_dict().items()},
@@ -72,7 +88,6 @@ class CheckpointManager:
         if state.ema is not None:
             payload["ema"] = {k: v.detach().cpu()
                               for k, v in state.ema.items()}
-        grads = state.accumulated_grads()
         if grads is not None:
             payload["accum_grads"] = grads
         if step_in_epoch is not None:
@@ -80,6 +95,7 @@ class CheckpointManager:
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
         os.replace(tmp, path)
+        mesh_lib.barrier(group)
         return path
 
     def load(self, kind: str) -> Dict[str, Any]:
@@ -98,6 +114,16 @@ class CheckpointManager:
             dev = next(state.model.parameters()).device
             state.ema = {k: v.to(dev) for k, v in ckpt["ema"].items()}
         if "accum_grads" in ckpt:
-            state.load_accumulated_grads(ckpt["accum_grads"])
+            grads = ckpt["accum_grads"]
+            world = state.group.world if state.group is not None else 1
+            ranks = len(grads) if isinstance(grads, list) else 1
+            if ranks != world:
+                raise ValueError(
+                    f"checkpoint stopped inside an accumulation window of "
+                    f"{ranks} rank(s); resume it with {ranks} rank(s), not "
+                    f"{world}")
+            if isinstance(grads, list):
+                grads = grads[state.group.rank]
+            state.load_accumulated_grads(grads)
         return {k: v for k, v in ckpt.items()
                 if k not in ("model", "optimizer", "ema", "accum_grads")}

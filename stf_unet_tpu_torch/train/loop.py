@@ -10,17 +10,25 @@ criterion, backward, and the AdamW apply at the schedule's lr (once per
 accumulation window, then the EMA update; train/state.py). The loss of
 step s is read on the host while step s+1 runs, so the host does not wait
 for the card every step.
+
+Under data parallelism (state.group) each rank runs this step on its
+rows of the global batch through the DDP wrapper (the non-final
+micro-steps of an accumulation window under no_sync), and the loss it
+returns is the global mean, all-reduced on the device.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import (Any, Callable, Dict, Iterable, Iterator, Optional,
                     Tuple, Union)
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from stf_unet_tpu_torch.core import mesh as mesh_lib
 from stf_unet_tpu_torch.core.prng import augment_generator
 from stf_unet_tpu_torch.data.loader import (Batch, HostLoader,
                                             load_sample_raw_native,
@@ -41,14 +49,17 @@ from stf_unet_tpu_torch.train.state import TrainState
 
 def loss_and_grads(model, images: torch.Tensor, targets: torch.Tensor,
                    num_classes: int, ignore_index: int = -100,
-                   loss_weight: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
+                   loss_weight: Optional[torch.Tensor] = None,
+                   forward=None, group=None) -> torch.Tensor:
     """Train-mode forward, criterion and backward: leaves the gradients
-    in the parameters' .grad and returns the loss (a device scalar)."""
+    in the parameters' .grad and returns the loss (a device scalar).
+    `forward` runs the model (its DDP wrapper under data parallelism,
+    with `group` for the criterion's global normalizer)."""
     model.train()
-    outputs = model(preprocess_input(images, model))
+    outputs = (forward or model)(preprocess_input(images, model))
     loss = criterion(outputs, targets, loss_weight=loss_weight,
-                     num_classes=num_classes, ignore_index=ignore_index)
+                     num_classes=num_classes, ignore_index=ignore_index,
+                     group=group)
     loss.backward()
     return loss
 
@@ -131,8 +142,16 @@ def train_step(state: TrainState, augment: TrainAugment,
     lr = schedule(state.step // k)
     if state.step % k == 0:
         state.optimizer.zero_grad(set_to_none=True)
-    loss = loss_and_grads(state.model, images, targets, num_classes,
-                          loss_weight=loss_weight)
+    # the window's last micro-step all-reduces the summed gradients
+    local = (state.ddp.no_sync() if state.ddp is not None
+             and (state.step + 1) % k else contextlib.nullcontext())
+    with local:
+        loss = loss_and_grads(state.model, images, targets, num_classes,
+                              loss_weight=loss_weight,
+                              forward=state.ddp, group=state.group)
+    if state.group is not None:
+        loss = mesh_lib.all_sum(state.group, loss.detach().clone()) \
+            / state.group.world
     state.step += 1
     if state.step % k == 0:
         for group in state.optimizer.param_groups:
@@ -186,7 +205,8 @@ def train_one_epoch(state: TrainState, loader: HostLoader,
 @torch.inference_mode()
 def evaluate(model, eval_batches: Iterable, num_classes: int, *,
              data_cfg, device: torch.device, print_freq: int = 100,
-             collect_outputs: bool = False) -> Dict[str, Any]:
+             collect_outputs: bool = False,
+             reduce_across_processes: bool = False) -> Dict[str, Any]:
     """Validation/test pass (ref:train_and_eval.py:316-374) over
     (image [B, T, h, w, 1] uint8, target [B, h, w] uint8) batches, which
     are normalized on the device. Returns {dice, confusion_matrix,
@@ -194,7 +214,14 @@ def evaluate(model, eval_batches: Iterable, num_classes: int, *,
     collect_outputs also "outputs" (host float32 logits [B, h, w, C] per
     batch) and "batches" (the consumed host (image, target) pairs, raw
     uint8: both viz helpers min-max normalize the image), for callers
-    that render or aggregate per sample."""
+    that render or aggregate per sample.
+
+    Data parallelism: with reduce_across_processes=True each rank
+    evaluated its own shard (eval_batches_from_index(host_index=,
+    num_hosts=)); the confusion matrix, dice sums and image count are
+    summed over the ranks, and every rank returns the same global
+    metrics. The outputs stay the rank's own (gather_eval_outputs brings
+    them to rank 0 in record order)."""
     model.eval()
     conf = confusion_init(num_classes, device)
     dice_cum = torch.zeros((num_classes,), dtype=torch.float32,
@@ -215,6 +242,11 @@ def evaluate(model, eval_batches: Iterable, num_classes: int, *,
         if collect_outputs:
             outputs.append(logits.cpu().numpy())
             batches.append((host_image, host_target))
+    if reduce_across_processes and dist.is_initialized():
+        sums = torch.tensor([count], dtype=torch.int64, device=device)
+        for t in (conf, dice_cum, sums):
+            dist.all_reduce(t)
+        count = int(sums.item())
     mat = conf.cpu().numpy()
     report = confusion_report(mat)
     return {
@@ -227,6 +259,23 @@ def evaluate(model, eval_batches: Iterable, num_classes: int, *,
         **({"outputs": outputs, "batches": batches} if collect_outputs
            else {}),
     }
+
+
+def gather_eval_outputs(group, metrics: Dict[str, Any]) -> Dict[str, Any]:
+    """Every rank's evaluate(collect_outputs=True) "outputs" and "batches"
+    on rank 0, in the order of one process's pass: the ranks evaluated
+    records[rank::world] (eval_batches_from_index's shards), so taking
+    their batches in turn restores the record order at batch 1. Rank 0's
+    metrics come back with them; the other ranks' without."""
+    mine = (metrics.pop("outputs"), metrics.pop("batches"))
+    parts = mesh_lib.gather_to_main(group, mine)
+    if parts is None:
+        return metrics
+    for key, i in (("outputs", 0), ("batches", 1)):
+        lists = [part[i] for part in parts]
+        metrics[key] = [lst[k] for k in range(max(map(len, lists)))
+                        for lst in lists if k < len(lst)]
+    return metrics
 
 
 class CachedEvalBatches:
@@ -253,7 +302,8 @@ class CachedEvalBatches:
 
 def eval_batches_from_index(index, cfg, *, use_pk_maps: bool = False,
                             batch_size: int = 1, prefetch: int = 2,
-                            pack=None):
+                            pack=None, host_index: int = 0,
+                            num_hosts: int = 1):
     """Eval-preprocessed uint8 (image, target) batches from a DatasetIndex:
     the PIL-parity resize runs on a background thread, normalization on
     the device (evaluate). batch_size > 1 groups same-shape samples, so a
@@ -262,23 +312,27 @@ def eval_batches_from_index(index, cfg, *, use_pk_maps: bool = False,
     native decoder when it builds (data/native_loader), else PIL; with a
     dataset `pack` (data/pack.py, validated against the index now, not
     at the first batch) they come from its eval store when that matches
-    the crop and PK selection, else from its decoded samples."""
+    the crop and PK selection, else from its decoded samples. Under data
+    parallelism rank host_index of num_hosts takes records[host::n] (a
+    disjoint cover; evaluate(reduce_across_processes=True) sums the
+    ranks' metrics)."""
     mask_format = cfg.mask_format
+    mine = range(len(index))[host_index::num_hosts]
     if pack is not None:
         pack.validate(index, mask_format=mask_format,
                       use_pk_maps=use_pk_maps)
 
     def sample_iter():
         if pack is not None and pack.serves_eval(cfg.crop_size, use_pk_maps):
-            for i in range(len(index)):
+            for i in mine:
                 yield pack.eval_sample(i)
             return
         if pack is not None:
-            for i in range(len(index)):
+            for i in mine:
                 frames, mask, pk, _ = pack.sample(i, use_pk_maps=use_pk_maps)
                 yield eval_preprocess(frames, mask, cfg, pk, raw=True)
             return
-        for rec in index.records:
+        for rec in (index.records[i] for i in mine):
             frames, mask, pk = load_sample_raw_native(rec, use_pk_maps,
                                                       mask_format)
             yield eval_preprocess(frames, mask, cfg, pk, raw=True)

@@ -19,19 +19,27 @@ only: ema = d * ema + (1 - d) * param after each apply, with the warmup
 ramp d = min(decay, (1 + n) / (10 + n)) over the apply index n. The BN
 running statistics of an EMA evaluation are the live model's, as the JAX
 package's TrainState.with_ema_weights has it.
+
+Data parallelism (`data_parallel`): the model's BNs take the global
+batch's statistics and a DistributedDataParallel wrapper (`ddp`) runs the
+train-mode forward and all-reduces the gradients; `model` stays the
+inner module, so the state_dict, the EMA and the checkpoints keep the
+reference key layout (no `module.` prefix). Every rank holds the same
+parameters, optimizer state and EMA after each apply.
 """
 
 from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from stf_unet_tpu_torch.core.config import OptimConfig
+from stf_unet_tpu_torch.models.blocks import convert_sync_batchnorm
 
 
 def make_optimizer(cfg: OptimConfig, model: nn.Module,
@@ -42,6 +50,22 @@ def make_optimizer(cfg: OptimConfig, model: nn.Module,
         model.parameters(), lr=cfg.lr, betas=(cfg.beta1, cfg.beta2),
         eps=cfg.eps, weight_decay=cfg.weight_decay,
         fused=device.type == "cuda")
+
+
+def data_parallel(model: nn.Module, group) -> nn.Module:
+    """The DistributedDataParallel wrapper of `model` over `group`
+    (core/mesh.DataGroup), its BNs synced first. DDP starts every rank
+    from rank 0's parameters and buffers; broadcast_buffers is off
+    because the synced BN keeps the running statistics equal. Every
+    parameter takes part in each forward (the PK branch exists only when
+    it runs), so unused-parameter detection stays off."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    convert_sync_batchnorm(model, group)
+    dev = group.device
+    return DistributedDataParallel(
+        model, device_ids=[dev.index] if dev.type == "cuda" else None,
+        broadcast_buffers=False)
 
 
 def ema_copy(model: nn.Module) -> Dict[str, torch.Tensor]:
@@ -58,6 +82,10 @@ class TrainState:
     ema: Optional[Dict[str, torch.Tensor]] = None
     ema_decay: float = 0.0
     ema_warmup: bool = True
+    # the data-parallel group (core/mesh.DataGroup) and the DDP wrapper of
+    # `model` (data_parallel), or None for one process
+    group: Any = None
+    ddp: Optional[nn.Module] = None
 
     def update_ema(self) -> None:
         """Advance the EMA after an apply (the JAX train step's update)."""

@@ -372,7 +372,7 @@ def test_maps_cli_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
         pmaps.main(["/nonexistent", *flag])
     err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "data parallelism" in err
+    assert "ROADMAP.md" in err and "data-parallel inference" in err
 
 
 def _files(root):

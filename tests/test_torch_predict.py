@@ -362,8 +362,8 @@ def test_pipeline_runs_random_weights_without_a_checkpoint(setup, tmp_path,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--data-parallel", "2"], "data parallelism"),
-    (["--data-parallel", "0"], "data parallelism"),
+    (["--data-parallel", "2"], "data-parallel inference"),
+    (["--data-parallel", "0"], "data-parallel inference"),
 ])
 def test_predict_refusals_name_their_item(argv, item, capsys):
     with pytest.raises(SystemExit):

@@ -141,7 +141,7 @@ def test_prometheus_metrics(server):
     assert "stf_requests_total" in text and "stf_mean_batch_size" in text
 
 
-def test_cli_flags():
+def test_cli_flags(capsys):
     args = parse_args(["--weights", "m.pth"])
     assert (args.model, args.dtype, args.device, args.max_batch) == \
         ("stflstm", "bf16", "cuda", 8)
@@ -149,6 +149,7 @@ def test_cli_flags():
         "int8"
     with pytest.raises(SystemExit):
         parse_args(["--weights", "m.pth", "--data-parallel", "2"])
+    assert "data-parallel inference" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("shape", [(3, 256, 256), (2, 300, 240),

@@ -233,7 +233,8 @@ def test_reload_under_load_answers_every_request(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["--weights", "a.pth", "--dtype", "int8"], "calibrate first"),
-    (["--model-dir", "d", "--data-parallel", "2"], "data parallelism"),
+    (["--model-dir", "d", "--data-parallel", "2"],
+     "data-parallel inference"),
     ([], "--weights"),
 ])
 def test_serve_refusals(argv, item, capsys, tmp_path, monkeypatch):

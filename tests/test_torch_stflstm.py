@@ -182,12 +182,12 @@ def test_entry_points_refuse_missing_cuda(port_model):
 
 def test_unported_variants_raise():
     """The per-frame re-roll mode is ported; a stop agreed across hosts
-    still waits for data parallelism."""
+    needs the process group it agrees over."""
     from stf_unet_tpu_torch.data.transforms import TrainAugment
     from stf_unet_tpu_torch.train.preempt import PreemptionGuard
     assert not TrainAugment(DataConfig(
         shared_frame_augmentation=False)).cfg.shared_frame_augmentation
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="process group"):
         PreemptionGuard(num_hosts=2)
 
 
@@ -226,12 +226,18 @@ DEPLOY_MODULES = (
     "pk/enhanced.py", "pk/debug.py", "cli/predict.py", "cli/pipeline.py",
     "cli/serve.py", "serve/http.py", "serve/engine.py",
 )
+# Modules of data parallelism.
+PARALLEL_MODULES = (
+    "core/distributed.py", "core/mesh.py", "parallel/__init__.py",
+    "parallel/dryrun.py", "models/blocks.py", "train/preempt.py",
+    "train/autobatch.py",
+)
 
 
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "stf_unet_tpu_torch").rglob("*.py"))
     for rel in (TRAINING_MODULES + TEST_MODULES + PK_MODULES
-                + DEPLOY_MODULES):
+                + DEPLOY_MODULES + PARALLEL_MODULES):
         assert REPO / "stf_unet_tpu_torch" / rel in files, rel
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 40

@@ -119,6 +119,8 @@ PORTED = {
     "--data-rotation-split": lambda c: c.data.rotation_split is True,
     "--data-pack": lambda c: c.data.pack_dir == "/p",
     "--batch-size": lambda c: c.batch_size == 0,
+    "--multihost": lambda c: c.multihost is True,
+    "--data-parallel": lambda c: c.data_parallel == 2,
 }
 
 
@@ -129,7 +131,8 @@ PORTED = {
     (["--data-rotation-split", "true"], "augmentation extras"),
     (["--data-pack", "/p"], "dataset packs"),
     (["--multihost"], "data parallelism"),
-    (["--spatial-parallel", "2"], "data parallelism"),
+    (["--data-parallel", "2"], "data parallelism"),
+    (["--spatial-parallel", "2"], "spatial parallelism"),
     (["--batch-size", "auto"], "autobatch"),
 ])
 def test_unported_flags_name_their_roadmap_item(argv, item, capsys):
