@@ -159,6 +159,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      dice within 1e-6, each rank's kernels launched; (c) ms per bf16
      batch-16 step with no group against NCCL world-1 DDP with synced BN
      (events, plain / DDP / DDP / plain).
+ 22. data-parallel inference, one process over a device list: (a) the
+     CLIs with --data-parallel 0 (every visible GPU): a bf16 and an int8
+     server with --tta --tiled answering 4 requests at 224^2 and 4 at
+     256^2, cli.predict --tiled over the unlabeled test images, pk.maps
+     over the 12 volumes (K4 2 x lm_iters times per chunk); K1f, K3, K4,
+     K5 and K6 launched; (b) two replicas on the one card against one
+     device (cuDNN deterministic): the masks of the engine at n = 1, 3,
+     8, of a 256^2 tiled volume and of the int8 engine (each int8 replica
+     launching K1f, K3, K5 and K6 over its own conv table) equal but
+     where one device's top-two logit margin is within DPI_MARGIN_REL of
+     max |logit|, probabilities within DPI_PROB_ATOL, fit_lm on one
+     volume bit-equal; (c) B=8 predict and a two-chunk fit_lm on one replica
+     against two (wall, events, the card's idle share); with several
+     GPUs, over 1, 2 and all of them.
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -3815,6 +3829,435 @@ def dp_compare(outs, solo: str, controls: dict) -> list:
     return ranks
 
 
+# Phase 22, data-parallel inference: one process over a device list
+# (core/mesh.inference_devices), a model replica on each device. (a) the
+# CLIs with --data-parallel 0, every visible GPU: a bf16 server with --tta
+# --tiled and an int8 server (--dtype int8 --tta --tiled), each answering
+# DPI_REQUESTS requests at 224^2 and at 256^2, cli/predict --tiled over
+# the unlabeled test images, pk.maps (LM) over the tree's 12 volumes; K1f,
+# K3, K4, K5 and K6 launched. (b) two replicas on the one card through the
+# APIs (devices=[cuda:0, cuda:0], the counterpart of the JAX tests'
+# simulated mesh), cuDNN deterministic and benchmark off, against one
+# device: the engine at n = 1, 3, 8 with return_probs, a 256^2 tiled
+# volume, the int8 engine (each replica's kernels counted), fit_lm over
+# one volume's tissue curves (3 chunks: two in the first dispatch). (c)
+# B=8 engine.predict and a two-chunk fit_lm on one replica against two
+# (wall and events, one, two, two, one) and a profiler view of the
+# two-replica predict; where several GPUs are visible, the same over 1, 2
+# and all of them (`cards`).
+DPI_REQUESTS = 4
+DPI_ENGINE_BATCHES = (1, 3, 8)
+DPI_TIMED = 10
+# (b)'s tolerances, written before the first run. The engines run bf16,
+# and two replicas give each convolution half the rows one device gives
+# it, so cuDNN may take another algorithm and round otherwise. A mask
+# pixel may differ from one device's only where one device's top-two
+# logit margin is at most DPI_MARGIN_REL of its max |logit| (four of the
+# bf16 steps TOL["bf16"] allows a kernel): the engine's, the int8
+# engine's and (on the blended scores) the tiles'; the float16
+# probabilities within DPI_PROB_ATOL; fit_lm bit-equal (each device fits
+# exactly the chunk one device fits in that place). The tiled and int8
+# masks take the margin rule too, not a share of equal pixels: on phase
+# 6's trained checkpoint the tiles keep ~0.998 of one device's pixels on
+# an H100 (NVIDIA H100 80GB HBM3, 700 W), all near-ties, and only a
+# margin tells a near-tie from a fault.
+DPI_MARGIN_REL = 4 * TOL["bf16"]
+DPI_PROB_ATOL = 2.0 ** -5
+# (c) on a machine with several GPUs: fit_lm timed over this many chunks.
+DPI_CARD_CHUNKS = 4
+
+
+def _sync(device: str) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _dpi_cli_runs(tmpdir: str, data: str, weights: str,
+                  device: str = "cuda") -> tuple:
+    """(a). Returns (launch counts summed over the runs, the line)."""
+    import math
+
+    import torch
+
+    from stf_unet_tpu_torch.cli import predict
+    from stf_unet_tpu_torch.cli.serve import build_server, parse_args
+    from stf_unet_tpu_torch.core.config import PKConfig
+    from stf_unet_tpu_torch.pk import maps as pk_maps
+    from stf_unet_tpu_torch.pk.fit import CHUNK
+    from stf_unet_tpu_torch.serve.client import SegmentationClient
+
+    cuda = torch.device(device).type == "cuda"  # kernels launch there
+    n_dev = torch.cuda.device_count() if cuda else 1
+    total = {name: 0 for name in counters()}
+    line = {}
+
+    def counted(name, fn, want):
+        kernels = reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        wall = time.perf_counter() - t0
+        launches = _launches(kernels)
+        for k in want if cuda else ():
+            check(launches[k] > 0, f"{k} never launched by {name} under "
+                                   f"--data-parallel 0")
+        for k, n in launches.items():
+            total[k] += n
+        line[name] = {"wall_s": wall, "launches": launches}
+        return out
+
+    rng = np.random.default_rng(22)
+    frames = {size: [rng.integers(0, 256, (T_STEPS, size, size),
+                                  dtype=np.uint8)
+                     for _ in range(DPI_REQUESTS)]
+              for size in (CROP, TRAIN_SRC)}
+    for dtype, want in (("bf16", ("lstm_last_x", "lstm_last")),
+                        ("int8", ("lstm_last_x", "lstm_last",
+                                  "quant_patches", "quant_epilogue"))):
+        server = build_server(parse_args(
+            ["--model", "stflstm", "--model-dir", weights,
+             "--use-subtraction", "--tta", "--tiled", "--warmup-geometries",
+             f"{TRAIN_SRC}x{TRAIN_SRC}", "--port", "0", "--max-batch", "8",
+             "--device", device, "--dtype", dtype, "--data-parallel", "0"]))
+        check(len(server.engine.replicas) == n_dev
+              and server.tiled.replicas is server.engine.replicas,
+              f"{dtype} server: {len(server.engine.replicas)} replicas for "
+              f"{n_dev} GPUs")
+        server.start()
+        try:
+            client = SegmentationClient("http://%s:%d" % server.address,
+                                        timeout=300)
+            answers = counted(f"serve_{dtype}", lambda: {
+                size: [client.segment(f) for f in stack]
+                for size, stack in frames.items()}, want)
+            errors = client.metrics()["errors"]
+        finally:
+            server.stop()
+        for size, masks in answers.items():
+            check(all(m.shape == (size, size) for m in masks),
+                  f"{dtype} server {size}: mask shapes")
+        check(errors == 0, f"{dtype} server: {errors} errors")
+        line[f"serve_{dtype}"]["ms_per_request"] = (
+            line[f"serve_{dtype}"]["wall_s"] * 1e3
+            / sum(len(s) for s in frames.values()))
+
+    unlabeled = os.path.join(tmpdir, "unlabeled")
+    result = counted("predict_tiled", lambda: predict.main(
+        ["--model", "stflstm", "--model-dir", weights, "--use-subtraction",
+         "--dtype", "bf16", "--device", device, "--input", unlabeled,
+         "--output-dir", os.path.join(tmpdir, "predict_dp"), "--tiled",
+         "--data-parallel", "0"]), ("lstm_last_x", "lstm_last"))
+    check(result["slices"] == EVAL_PATIENTS * TRAIN_SLICES,
+          f"predict --data-parallel 0: {result['slices']} slices")
+    line["predict_tiled"]["ms_per_slice"] = (
+        result["seconds"]["total"] * 1e3 / result["slices"])
+
+    cfg = PKConfig()
+    chunks = sum(math.ceil(n / CHUNK) for *_, n in pk_volumes(data))
+    counted("pk_maps", lambda: pk_maps.main(
+        [data, "--solver", "lm", "--device", device, "--data-parallel",
+         "0"]), ("tofts_sums",))
+    got = line["pk_maps"]["launches"]["tofts_sums"]
+    check(got == chunks * 2 * cfg.lm_iters or not cuda,
+          f"pk.maps --data-parallel 0: "
+                                            f"K4 launched {got} times, "
+                                            f"expected {chunks} chunks x 2 "
+                                            f"x {cfg.lm_iters}")
+    for split, patient, _, _ in pk_volumes(data):
+        raw = np.load(os.path.join(data, "seg", split, "pk_maps", patient,
+                                   "ktrans_raw.npy"))
+        check(bool(np.isfinite(raw).all()), f"{split}/{patient}: "
+                                            f"non-finite Ktrans")
+    line["pk_maps"]["s_per_volume"] = line["pk_maps"]["wall_s"] / PK_VOLUMES
+    line["devices"] = n_dev
+    return total, line
+
+
+def _replica_counts(replicas):
+    """Per replica, the launches made inside its forwards: a pre-hook
+    snapshots the counters, a hook adds the difference. Returns (the
+    counts, the hook handles)."""
+    kernels = counters()
+    counts = [{name: 0 for name in kernels} for _ in replicas]
+    handles = []
+    for i, r in enumerate(replicas):
+        start = {}
+
+        def pre(_m, _args, start=start):
+            start.update(_launches(kernels))
+
+        def post(_m, _args, _out, i=i, start=start):
+            for name, fn in kernels.items():
+                counts[i][name] += fn.launches - start[name]
+        handles += [r.register_forward_pre_hook(pre),
+                    r.register_forward_hook(post)]
+    return counts, handles
+
+
+def _margin_check(label, logits, one, two) -> dict:
+    """one / two: the masks of one device and of replicas; logits: one
+    device's [..., C]. A differing pixel must be a near-tie (the
+    tolerances above)."""
+    top = logits.float().topk(2, dim=-1).values
+    margin = (top[..., 0] - top[..., 1]).cpu().numpy()
+    bound = DPI_MARGIN_REL * float(logits.float().abs().max())
+    differ = one != two
+    out = {"pixels_differing": int(differ.sum()),
+           "share_equal": float(1 - differ.mean()),
+           "max_margin_where_differing":
+               float(margin[differ].max()) if differ.any() else 0.0,
+           "margin_bound": bound}
+    check(bool((margin[differ] <= bound).all()),
+          f"{label}: a mask differs from one device's where the top-two "
+          f"margin exceeds {bound}: {out}")
+    return out
+
+
+def _engine_logits(eng, images):
+    """The logits of an engine's own padded batch on its first replica
+    (the first n rows): one device's, for _margin_check."""
+    import torch
+
+    from stf_unet_tpu_torch.data.transforms import normalize
+    from stf_unet_tpu_torch.models.registry import preprocess_input
+
+    n = len(images)
+    padded = np.concatenate([images] + [images[:1]] * (eng._bucket(n) - n))
+    with torch.inference_mode():
+        x = normalize(torch.from_numpy(padded).to(eng.device), eng.mean,
+                      eng.std)
+        return eng.model(preprocess_input(x, eng.model))["out"][:n]
+
+
+def _dpi_two_replicas(data: str, weights: str, device: str = "cuda") -> dict:
+    """(b) and (c). Returns the line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stf_unet_tpu_torch.cli.common import (checkpoint_path,
+                                               restore_for_inference)
+    from stf_unet_tpu_torch.core.config import PKConfig
+    from stf_unet_tpu_torch.ops import quant
+    from stf_unet_tpu_torch.pk.aif import make_aif
+    from stf_unet_tpu_torch.pk.fit import CHUNK, fit_lm, preprocess_images
+    from stf_unet_tpu_torch.pk.tofts import ToftsQuadrature
+    from stf_unet_tpu_torch.serve.engine import InferenceEngine
+    from stf_unet_tpu_torch.serve.tiled import TiledPredictor
+
+    cuda = torch.device(device).type == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device(device)
+    two = [dev, dev]
+    path = checkpoint_path(weights, "stflstm")
+    model, data_cfg, _, meta = restore_for_inference(
+        "stflstm", path, use_subtraction=True, dtype="bf16", device=dev)
+    mean, std = data_cfg.mean, data_cfg.std
+    rng = np.random.default_rng(23)
+    line = {"tolerance": {"margin_rel": DPI_MARGIN_REL,
+                          "prob_atol": DPI_PROB_ATOL}}
+    settings = (torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        one_eng = InferenceEngine(model, mean, std, max_batch=8, device=dev)
+        two_eng = InferenceEngine(model, mean, std, max_batch=8,
+                                  devices=two)
+        engine = {}
+        for n in DPI_ENGINE_BATCHES:
+            images = rng.integers(0, 256, (n, T_STEPS, CROP, CROP, 1),
+                                  dtype=np.uint8)
+            m1, p1 = one_eng.predict(images, return_probs=True)
+            m2, p2 = two_eng.predict(images, return_probs=True)
+            check(np.array_equal(m2, two_eng.predict(images)),
+                  f"two replicas n={n}: masks with and without probs")
+            prob_err = float(np.abs(p1.astype(np.float32)
+                                    - p2.astype(np.float32)).max())
+            engine[str(n)] = {**_margin_check(
+                f"two replicas n={n}", _engine_logits(one_eng, images), m1,
+                m2), "max_prob_diff": prob_err}
+            check(prob_err <= DPI_PROB_ATOL, f"two replicas n={n}: probs "
+                                             f"{prob_err} from one device's")
+        line["engine"] = engine
+
+        volume = rng.integers(0, 256, (T_STEPS, TRAIN_SRC, TRAIN_SRC, 1),
+                              dtype=np.uint8)
+        kw = dict(mean=mean, std=std, tile=CROP, overlap=0.5)
+        scores = TiledPredictor(model, device=dev, **kw).scores(volume)
+        line["tiled_256"] = _margin_check(
+            "tiled over two replicas", scores,
+            scores.argmax(-1).cpu().numpy(),
+            TiledPredictor(model, devices=two, **kw).predict(volume))
+
+        scales = quant.load_scales(quant.scales_path_for(path),
+                                   checkpoint_meta=meta)
+        qmodel = quant.QuantizedModel(model, scales).eval()
+        q_one = InferenceEngine(qmodel, mean, std, max_batch=8, device=dev)
+        q_two = InferenceEngine(qmodel, mean, std, max_batch=8, devices=two)
+        images = rng.integers(0, 256, (8, T_STEPS, CROP, CROP, 1),
+                              dtype=np.uint8)
+        counts, handles = _replica_counts(q_two.replicas)
+        try:
+            qm2 = q_two.predict(images)
+        finally:
+            for h in handles:
+                h.remove()
+        tables = [set(r._table) for r in q_two.replicas]
+        check(not tables[0] & tables[1] and all(
+            t == {r.model.get_submodule(name) for name in r.paths}
+            and len(t) == len(scales)
+            for t, r in zip(tables, q_two.replicas)),
+            "an int8 replica's conv table holds another replica's convs")
+        line["int8"] = {**_margin_check(
+            "int8 over two replicas", _engine_logits(q_one, images),
+            q_one.predict(images), qm2), "launches_by_replica": counts}
+        for i, c in enumerate(counts if cuda else ()):
+            for name in ("lstm_last_x", "lstm_last", "quant_patches",
+                         "quant_epilogue"):
+                check(c[name] > 0, f"{name} never launched by int8 "
+                                   f"replica {i}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = settings
+
+    cfg = PKConfig()
+    volumes = []
+    for _, _, frames, _ in pk_volumes(data)[:2]:
+        imgs, mask = preprocess_images(frames, cfg)
+        volumes.append(imgs.numpy().transpose(1, 2, 0)[mask.numpy()])
+    curves = volumes[0]  # one volume's tissue curves, ~2.5 chunks
+    quad = ToftsQuadrature.build(cfg.time_points, make_aif(cfg.aif_method),
+                                 cfg.dt, device=dev)
+    fits = {}
+    for label, devices in (("one", None), ("two", two)):
+        kernels = reset_counts()
+        fits[label] = fit_lm(curves, quad, cfg, devices=devices)
+        fits[label + "_k4"] = _launches(kernels)["tofts_sums"]
+    chunks = -(-len(curves) // CHUNK)
+    line["fit_lm"] = {"voxels": len(curves), "chunks": chunks,
+                      "bit_equal": bool(np.array_equal(fits["one"],
+                                                       fits["two"])),
+                      "k4_launches": [fits["one_k4"], fits["two_k4"]]}
+    check(chunks >= 2, f"fit_lm check: {chunks} chunk(s), the second "
+                       f"replica would sit idle")
+    check(line["fit_lm"]["bit_equal"], "fit_lm over two replicas is not "
+                                       "bit-equal to one device")
+    check(fits["one_k4"] == fits["two_k4"] == chunks * 2 * cfg.lm_iters
+          or not cuda,
+          f"fit_lm K4 launches {fits['one_k4']} / {fits['two_k4']}")
+
+    # (c) one replica against two on the one card: one, two, two, one
+    images = rng.integers(0, 256, (8, T_STEPS, CROP, CROP, 1),
+                          dtype=np.uint8)
+    engines = {"one": one_eng, "two": two_eng}
+    for eng in engines.values():
+        eng.predict(images)
+
+    def predict_ms(eng):
+        """(wall ms, event ms) per call; events only on the card."""
+        _sync(device)
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        for _ in range(DPI_TIMED):
+            eng.predict(images)
+        wall = (time.perf_counter() - t0) * 1e3 / DPI_TIMED
+        if not cuda:
+            return wall, "not measured"
+        end.record()
+        end.synchronize()
+        return wall, start.elapsed_time(end) / DPI_TIMED
+
+    timed = {"one": [], "two": []}
+    for label in ("one", "two", "two", "one"):
+        timed[label].append(predict_ms(engines[label]))
+    chunk2 = curves[:2 * CHUNK]
+    fit_s = {"one": [], "two": []}
+    fit_lm(chunk2, quad, cfg, devices=two)
+    for label in ("one", "two", "two", "one"):
+        t0 = time.perf_counter()
+        fit_lm(chunk2, quad, cfg, devices=two if label == "two" else None)
+        fit_s[label].append((time.perf_counter() - t0) * 1e3)
+    if cuda and torch.cuda.device_count() > 1:
+        line["cards"] = _dpi_cards(model, mean, std, images,
+                                   np.concatenate(volumes), quad, cfg,
+                                   predict_ms)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        two_eng.predict(images)
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(dev_ms(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    idle = (1 - busy / prof_ms) if busy else None
+    line["timing"] = {
+        "engine_b8_wall_ms": {k: [w for w, _ in v]
+                              for k, v in timed.items()},
+        "engine_b8_event_ms": {k: [e for _, e in v]
+                               for k, v in timed.items()},
+        "fit_lm_2chunks_wall_ms": fit_s, "chunk_voxels": CHUNK,
+        "order": "one, two, two, one",
+        "two_replica_predict_kernel_ms": busy if busy else "not measured",
+        "two_replica_predict_idle_share": idle if busy else "not measured",
+        "paced_by": ("host" if idle is not None and idle > 0.3
+                     else "device" if idle is not None
+                     else "not measured")}
+    return line
+
+
+def _dpi_cards(model, mean, std, images, curves, quad, cfg, predict_ms):
+    """(c) over k = 1, 2 and every visible GPU, where there are several:
+    B=8 engine.predict and a DPI_CARD_CHUNKS-chunk fit_lm, wall ms (one
+    host thread feeds every card); the masks against one card's by
+    _margin_check, the fit bit-equal."""
+    import torch
+
+    from stf_unet_tpu_torch.pk.fit import CHUNK, fit_lm
+    from stf_unet_tpu_torch.serve.engine import InferenceEngine
+
+    n = torch.cuda.device_count()
+    curves = curves[:DPI_CARD_CHUNKS * CHUNK]
+    out, ref = {}, None
+    for k in sorted({1, 2, n}):
+        devices = [torch.device("cuda", i) for i in range(k)]
+        eng = InferenceEngine(model, mean, std, max_batch=8, devices=devices)
+        masks = eng.predict(images)
+        fit_lm(curves, quad, cfg, devices=devices)
+        t0 = time.perf_counter()
+        fitted = fit_lm(curves, quad, cfg, devices=devices)
+        fit_ms = (time.perf_counter() - t0) * 1e3
+        if ref is None:
+            ref = (masks, fitted, _engine_logits(eng, images))
+        out[str(k)] = {"engine_b8_wall_ms": predict_ms(eng)[0],
+                       "fit_lm_wall_ms": fit_ms,
+                       "fit_voxels": len(curves),
+                       "masks_against_one_card": _margin_check(
+                           f"engine over {k} cards", ref[2], ref[0], masks),
+                       "fit_bit_equal_to_one_card":
+                           bool(np.array_equal(fitted, ref[1]))}
+        check(out[str(k)]["fit_bit_equal_to_one_card"],
+              f"fit_lm over {k} cards is not bit-equal to one card")
+        del eng
+    return out
+
+
+def dp_inference_phase(tmpdir: str, data: str, weights: str,
+                       device: str = "cuda") -> dict:
+    """22. (a), (b) and (c) above, on phase 6's best checkpoint (bf16) and
+    its phase-20 scales; `tmpdir` holds phase 17's unlabeled copy of the
+    test images. Returns the launch counts of (a)."""
+    t_phase = time.perf_counter()
+    launches, cli_line = _dpi_cli_runs(tmpdir, data, weights, device)
+    line = _dpi_two_replicas(data, weights, device)
+    print(json.dumps({"data_parallel_inference": {
+        "cli": cli_line, "two_replicas": line,
+        "phase_wall_s": time.perf_counter() - t_phase}}), flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3915,6 +4358,11 @@ def main() -> int:
         # data parallelism: --multihost at world 1, two gloo ranks, DDP's
         # cost on one card
         deploy["data_parallel"] = data_parallel_phase(tmpdir, data)
+        # data-parallel inference: --data-parallel 0 through the CLIs,
+        # two replicas on the card against one device
+        torch.cuda.empty_cache()
+        deploy["data_parallel_inference"] = dp_inference_phase(
+            tmpdir, data, stf_weights)
     for name in ("quant_patches", "quant_epilogue"):
         agg[name]["device_ms"] = int8_forwards["stflstm"]["int8_split_b8"][
             f"{name}_ms"]

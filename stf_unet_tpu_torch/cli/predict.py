@@ -20,7 +20,12 @@ Usage: python -m stf_unet_tpu_torch.cli.predict --input <dir|file.npz>
        [--model unet|stflstm] [--model-dir ./save_weights]
        [--output-dir ./output/predictions] [--tiled] [--tta] [--full-size]
        [--save-probs] [--pk-fit [--pk-solver lm|adam] [--pk-enhanced]]
-       [--dtype f32|bf16] [--device cuda|cpu]
+       [--data-parallel N] [--dtype f32|bf16] [--device cuda|cpu]
+
+--data-parallel N runs the forward from this one process over the first N
+visible GPUs (0: all of them), a model replica on each, each batch (or
+--tiled tile group) split over them; --pk-fit stays on the first, as the
+JAX CLI's does. With --device cpu the N replicas share the host.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from PIL import Image
 from stf_unet_tpu_torch.cli.common import (DTYPES, checkpoint_path,
                                            restore_for_inference)
 from stf_unet_tpu_torch.core.config import PKConfig
+from stf_unet_tpu_torch.core.mesh import inference_devices
 from stf_unet_tpu_torch.data.loader import decode_stack, load_pk_stack
 from stf_unet_tpu_torch.data.transforms import eval_preprocess
 from stf_unet_tpu_torch.serve.engine import InferenceEngine
@@ -84,7 +90,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="flip test-time augmentation (4-orientation logit "
                         "ensemble)")
     p.add_argument("--data-parallel", type=int, default=1,
-                   help=argparse.SUPPRESS)
+                   help="split each batch over N devices, a model replica "
+                        "on each (0 = every visible GPU, 1 = one device)")
     p.add_argument("--max-batch", type=int, default=8,
                    help="batch same-geometry slices up to this size")
     p.add_argument("--full-size", action="store_true",
@@ -113,11 +120,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="compute dtype (parameters stay float32)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' only when asked for")
-    args = p.parse_args(argv)
-    if args.data_parallel != 1:
-        p.error("--data-parallel is not ported to the PyTorch package yet "
-                "(ROADMAP.md §1, 'data-parallel inference')")
-    return args
+    return p.parse_args(argv)
 
 
 def scan_unlabeled(input_path: str, sequence_types: Sequence[str]
@@ -210,6 +213,9 @@ def predict(args: argparse.Namespace) -> dict:
     {"restore", "forward" (the model, with the host preprocessing of its
     batches), "pk_fit", "total"}."""
     t_start = time.perf_counter()
+    devices = None
+    if args.data_parallel != 1:  # before anything loads: fail fast
+        devices = inference_devices(args.data_parallel, args.device)
     if args.use_pk_maps and not args.pk_maps:
         raise SystemExit(
             "--use-pk-maps needs --pk-maps <dir> holding "
@@ -229,6 +235,8 @@ def predict(args: argparse.Namespace) -> dict:
         from stf_unet_tpu_torch.ops.tta import FlipTTAModel
         model = FlipTTAModel(model).eval()
         print("flip TTA: logits averaged over 4 orientations")
+    if devices is not None:
+        print(f"batches sharded over {len(devices)} devices")
     seconds = {"restore": time.perf_counter() - t_start, "forward": 0.0,
                "pk_fit": 0.0}
 
@@ -237,13 +245,14 @@ def predict(args: argparse.Namespace) -> dict:
         from stf_unet_tpu_torch.serve.tiled import TiledPredictor
         tiled = TiledPredictor(model, data_cfg.mean, data_cfg.std,
                                tile=data_cfg.crop_size,
-                               overlap=args.tile_overlap, device=args.device)
+                               overlap=args.tile_overlap, device=args.device,
+                               devices=devices)
         print(f"tiled native-resolution inference (tile={tiled.tile}, "
               f"stride={tiled.stride})")
     else:
         engine = InferenceEngine(model, data_cfg.mean, data_cfg.std,
                                  max_batch=args.max_batch,
-                                 device=args.device)
+                                 device=args.device, devices=devices)
 
     def pk_fit(frames, pred, pdir, name):
         """The Tofts fit of the slice's native frames and the combined

@@ -7,7 +7,7 @@ Usage: python -m stf_unet_tpu_torch.cli.serve --model-dir ./save_weights
        [--host 127.0.0.1] [--port 8421] [--max-batch 8]
        [--batch-window-ms 5] [--dtype bf16|f32|int8] [--crop-size 224]
        [--tta] [--tiled [--tile-overlap 0.5] [--warmup-geometries HxW,..]]
-       [--no-warmup] [--device cuda]
+       [--no-warmup] [--data-parallel N] [--device cuda]
    or: ... --weights model.pth
 
 --model-dir serves the best, else the latest checkpoint of a cli/train
@@ -26,6 +26,11 @@ in int8 with the scales `python -m stf_unet_tpu_torch.cli.quantize` wrote
 next to the served checkpoint (`<checkpoint>.quant_scales.json`), the
 rest in bf16; a reload re-reads the checkpoint and its scales and
 re-quantizes, and a checkpoint without scales is refused.
+--data-parallel N serves from this one process over the first N visible
+GPUs (0: all of them): a replica of the model on each, every batch split
+over them (serve/engine.py); it composes with --tta, --tiled and --dtype
+int8, and a reload reaches every replica. With --device cpu the N
+replicas share the host.
 
 Client: stf_unet_tpu_torch.serve.client.SegmentationClient.
 """
@@ -43,11 +48,8 @@ import numpy as np
 from stf_unet_tpu_torch.cli.common import (DTYPES, checkpoint_path,
                                            load_reference_checkpoint,
                                            restore_for_inference)
+from stf_unet_tpu_torch.core.mesh import inference_devices
 from stf_unet_tpu_torch.serve.http import SegmentationServer
-
-# Flags of the JAX server whose features the port has not implemented
-# yet -> the ROADMAP.md item (§1) that brings them.
-UNPORTED = {"--data-parallel": "data-parallel inference"}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -83,7 +85,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "are float32); int8: the convs in int8 with the "
                         "checkpoint's calibrated scales, the rest bf16")
     p.add_argument("--data-parallel", type=int, default=1,
-                   help=argparse.SUPPRESS)
+                   help="serve over N devices from this process, a model "
+                        "replica on each (0 = every visible GPU, 1 = one "
+                        "device)")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip running the batch buckets at startup")
     p.add_argument("--tiled", action="store_true",
@@ -105,9 +109,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if (args.weights is None) == (args.model_dir is None):
         p.error("give one of --weights (a .pth file) or --model-dir (a "
                 "cli/train save directory)")
-    if args.data_parallel != 1:
-        p.error(f"--data-parallel is not ported to the PyTorch package yet "
-                f"(ROADMAP.md §1, '{UNPORTED['--data-parallel']}')")
     return args
 
 
@@ -134,6 +135,9 @@ def build_server(args: argparse.Namespace) -> SegmentationServer:
             return args.weights
         return checkpoint_path(args.model_dir, args.model, args.use_pk_maps)
 
+    devices = None
+    if args.data_parallel != 1:  # before anything loads: fail fast
+        devices = inference_devices(args.data_parallel, args.device)
     served = path()
     int8 = args.dtype == "int8"
     model, data_cfg, model_cfg, meta = restore_for_inference(
@@ -160,14 +164,19 @@ def build_server(args: argparse.Namespace) -> SegmentationServer:
         from stf_unet_tpu_torch.ops.tta import FlipTTAModel
         model = FlipTTAModel(model).eval()
         print("flip TTA: serving the 4-orientation logit ensemble")
+    if devices is not None:
+        print(f"data-parallel serving over {len(devices)} devices")
     tiled = None
     if args.tiled:
         from stf_unet_tpu_torch.serve.tiled import TiledPredictor
         tiled = TiledPredictor(model, data_cfg.mean, data_cfg.std,
                                tile=data_cfg.crop_size,
-                               overlap=args.tile_overlap, device=args.device)
+                               overlap=args.tile_overlap, device=args.device,
+                               devices=devices)
         print(f"tiled mode: non-{data_cfg.crop_size}² volumes segment at "
-              f"native resolution (stride {tiled.stride})")
+              f"native resolution (stride {tiled.stride}"
+              + (f", tile batch split over {len(devices)} devices"
+                 if devices else "") + ")")
 
     def reloader():
         """POST /v1/reload: re-read the best / latest checkpoint (or the
@@ -185,7 +194,7 @@ def build_server(args: argparse.Namespace) -> SegmentationServer:
         model, data_cfg, model_name=args.model, host=args.host,
         port=args.port, max_batch=args.max_batch,
         window_ms=args.batch_window_ms, device=args.device, tiled=tiled,
-        weights=weights, reloader=reloader)
+        weights=weights, reloader=reloader, devices=devices)
     geometries = _geometries(args.warmup_geometries)
     if geometries and tiled is None:
         print("warning: --warmup-geometries ignored without --tiled")

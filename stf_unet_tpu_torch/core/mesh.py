@@ -1,26 +1,39 @@
-"""The data-parallel group (counterpart of stf_unet_tpu/core/mesh.py).
+"""The data-parallel mesh (counterpart of stf_unet_tpu/core/mesh.py).
 
 The JAX package shards the batch axis over a 1-D `Mesh(('data',))` and
-lets GSPMD insert the collectives. The port runs one process per device
-instead, so a `DataGroup` (world size, this process's rank, its device)
-stands in for the mesh: each rank holds its rows of the global batch
-(`shard_batch`), the model starts from rank 0's weights (`replicate`,
-which DistributedDataParallel also does), and the reductions that XLA
-inserted are explicit calls: DDP's gradient all-reduce, the synced BN
-statistics (models/blocks.convert_sync_batchnorm), the metric sums
-(train/loop.evaluate), the agreed stop (train/preempt.py). The helpers
-below are those host-side calls; outside a process group each is the
-one-process identity.
+lets GSPMD insert the collectives. The port stands in for the mesh in two
+ways:
+
+  * Training and evaluation run one process per device: a `DataGroup`
+    (world size, this process's rank, its device). Each rank holds its
+    rows of the global batch (`shard_batch`), the model starts from rank
+    0's weights (`replicate`, which DistributedDataParallel also does),
+    and the reductions that XLA inserted are explicit calls: DDP's
+    gradient all-reduce, the synced BN statistics
+    (models/blocks.convert_sync_batchnorm), the metric sums
+    (train/loop.evaluate), the agreed stop (train/preempt.py). Outside a
+    process group each helper is the one-process identity.
+  * Inference runs in one process over a device list
+    (`inference_devices`): one replica of the model per device
+    (`replicate_module`), the padded batch split into equal shards
+    (`split_rows`), each shard's forward on its replica under
+    `device_scope`, every device's work enqueued before any result is
+    read. Nothing is reduced across devices, so no process group is
+    needed (serve/engine.py, serve/tiled.py, pk/fit.py).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import datetime
 from dataclasses import dataclass
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from stf_unet_tpu_torch.core.config import resolve_device
 
 DATA_AXIS = "data"
 
@@ -85,6 +98,51 @@ def create_mesh(n_data: int = 0, device="cuda") -> DataGroup:
     if dist.get_backend() != "gloo":
         host = dist.new_group(backend="gloo")
     return DataGroup(world, rank, dev, host)
+
+
+def inference_devices(n_data: int = 0, device="cuda") -> List[torch.device]:
+    """The devices of `--data-parallel n_data` for one inference process:
+    the first n_data visible GPUs, all of them for 0; more than are
+    visible raises, never shrinking the list quietly. On an explicit CPU
+    device, n_data CPU entries (one for 0): replicas that share the host,
+    the counterpart of the JAX tests' simulated devices."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return [dev] * max(n_data, 1)
+    count = torch.cuda.device_count()
+    n = count if n_data <= 0 else n_data
+    if n > count:
+        raise ValueError(f"--data-parallel {n_data} asks for {n} GPUs but "
+                         f"{count} are visible")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def replicate_module(model: torch.nn.Module,
+                     devices: Sequence[torch.device]
+                     ) -> List[torch.nn.Module]:
+    """One eval-mode replica of `model` per device: `model` itself on
+    devices[0] (moved there in place if it is elsewhere), a deep copy on
+    each other device. Wrappers come along whole (ops/tta.FlipTTAModel,
+    ops/quant.QuantizedModel, whose conv table is rebuilt over the
+    copy's own convs)."""
+    model.to(devices[0])
+    return [model] + [copy.deepcopy(model).to(dev).eval()
+                      for dev in devices[1:]]
+
+
+def split_rows(x, n: int) -> list:
+    """x's rows in n equal consecutive shards (numpy or tensor)."""
+    b, rem = divmod(x.shape[0], n)
+    if rem:
+        raise ValueError(f"batch {x.shape[0]} does not divide over {n} "
+                         f"devices")
+    return [x[i * b:(i + 1) * b] for i in range(n)]
+
+
+def device_scope(dev: torch.device):
+    """`torch.cuda.device(dev)` on a GPU; nothing on the CPU."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def pad_batch_to_multiple(batch_size: int, n_shards: int) -> int:

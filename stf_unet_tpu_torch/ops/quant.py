@@ -234,8 +234,20 @@ class QuantizedModel(nn.Module):
         self.quant = nn.ModuleDict({
             _key(name): QuantConv(convs[name], absmax)
             for name, absmax in scales.items() if name not in exclude})
-        self._table = {convs[name]: self.quant[_key(name)]
-                       for name in self.paths}
+        self._table = self._conv_table()
+
+    def _conv_table(self) -> Dict[conv_ops.Conv2d, QuantConv]:
+        """{conv module: its QuantConv}: the table ops/conv.intercept
+        looks each conv up in, by identity."""
+        return {self.model.get_submodule(name): self.quant[_key(name)]
+                for name in self.paths}
+
+    def __setstate__(self, state):
+        # A deep copy (core/mesh.replicate_module) or an unpickled wrapper
+        # must look up its own convs, never the original's: those would
+        # not be found, and the copy's convs would quietly run in float.
+        super().__setstate__(state)
+        self._table = self._conv_table()
 
     @property
     def paths(self) -> Tuple[str, ...]:

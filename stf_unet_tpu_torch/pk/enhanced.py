@@ -44,7 +44,7 @@ from stf_unet_tpu_torch.pk.aif import auto_detect_aif, make_aif
 from stf_unet_tpu_torch.pk.debug import (fit_with_debug, pyplot,
                                          render_aif_debug)
 from stf_unet_tpu_torch.pk.fit import dilate, erode, fit_adam, fit_lm
-from stf_unet_tpu_torch.pk.maps import PARAM_NAMES, save_param_maps
+from stf_unet_tpu_torch.pk.maps import PARAM_NAMES, Devices, save_param_maps
 from stf_unet_tpu_torch.pk.tofts import ToftsQuadrature
 
 # Per-parameter low-value thresholds (ref:test_pk_fitting.py:477).
@@ -236,10 +236,12 @@ def postprocess_param_maps(param_maps: np.ndarray, tissue_mask: np.ndarray,
 def fit_volume_enhanced(images: np.ndarray, cfg: PKConfig,
                         output_dir: Optional[str] = None,
                         debug_output_dir: Optional[str] = None,
-                        device="cuda") -> np.ndarray:
-    """Enhanced preprocessing -> fit on `device` -> postprocessing (the
-    fork's fit_volume_gpu): [T, H, W] frames -> [3, H, W] maps."""
-    dev = resolve_device(device)
+                        device="cuda", devices: Devices = None
+                        ) -> np.ndarray:
+    """Enhanced preprocessing -> fit on `device`, or voxel-sharded over
+    `devices` (the debug fit on the first) -> postprocessing (the fork's
+    fit_volume_gpu): [T, H, W] frames -> [3, H, W] maps."""
+    dev = devices[0] if devices else resolve_device(device)
     t_steps, h, w = images.shape
     processed, tissue_mask = enhanced_preprocess(images, debug_output_dir)
 
@@ -260,7 +262,7 @@ def fit_volume_enhanced(images: np.ndarray, cfg: PKConfig,
         fitted = fit_with_debug(valid, quad, cfg, debug_output_dir)
     else:
         solver = fit_lm if cfg.solver == "lm" else fit_adam
-        fitted = solver(valid, quad, cfg)
+        fitted = solver(valid, quad, cfg, devices=devices)
 
     maps = np.zeros((3, h * w), np.float32)
     maps[:, flat_mask] = fitted.T
@@ -272,12 +274,14 @@ def fit_volume_enhanced(images: np.ndarray, cfg: PKConfig,
 
 
 def aif_method_maps(images: np.ndarray, cfg: PKConfig, output_dir: str,
-                    device="cuda") -> Dict[str, np.ndarray]:
+                    device="cuda", devices: Devices = None
+                    ) -> Dict[str, np.ndarray]:
     """The volume fitted (enhanced) with each AIF method, each method's
     maps saved under `output_dir/<method>/`: method -> [3, H, W]."""
     return {method: fit_volume_enhanced(
         images, dataclasses.replace(cfg, aif_method=method),
-        output_dir=os.path.join(output_dir, method), device=device)
+        output_dir=os.path.join(output_dir, method), device=device,
+        devices=devices)
         for method in AIF_METHODS}
 
 
@@ -311,12 +315,14 @@ def draw_aif_comparison(results: Dict[str, np.ndarray],
 
 
 def compare_aif_methods(images: np.ndarray, cfg: PKConfig, output_dir: str,
-                        device="cuda") -> Dict[str, np.ndarray]:
+                        device="cuda", devices: Devices = None
+                        ) -> Dict[str, np.ndarray]:
     """Fit the volume with all three AIF methods and render each method's
     maps and the pairwise differences (ref:709-887 test_aif_methods).
     Without matplotlib it stops before fitting, as the JAX module does."""
     pyplot("--compare-aif")
-    results = aif_method_maps(images, cfg, output_dir, device=device)
+    results = aif_method_maps(images, cfg, output_dir, device=device,
+                              devices=devices)
     draw_aif_comparison(results, output_dir)
     return results
 

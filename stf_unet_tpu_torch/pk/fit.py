@@ -18,18 +18,26 @@ package pads each chunk to a power-of-two bucket so that XLA compiles O(1)
 programs; PyTorch compiles nothing, so a chunk here is exactly the voxels
 it holds (the voxels are independent, so the fit is the same).
 
+`devices=` (core/mesh.inference_devices), the JAX solvers' `mesh=`: each
+dispatch gives every device its own CHUNK voxels (JAX: CHUNK per shard),
+against its own copy of the quadrature; every device's chunk is enqueued
+before any result is read, so the devices run together. Device d of a
+dispatch takes exactly the chunk one device would fit in that place, so
+the result is bit-identical to one device's.
+
 As in the JAX package the images are normalized once (/255), not twice as
 the reference does.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from stf_unet_tpu_torch.core.config import PKConfig
+from stf_unet_tpu_torch.core.mesh import device_scope
 from stf_unet_tpu_torch.pk.tofts import (ToftsQuadrature, dual_sums,
                                          extended_tofts_batch,
                                          extended_tofts_from_sums,
@@ -169,6 +177,10 @@ def _adam_fit_chunk(curves: torch.Tensor, quad: ToftsQuadrature,
     m = torch.zeros_like(params)
     v = torch.zeros_like(params)
     losses = []
+    # made once, so the epochs never wait on a host-to-device copy (that
+    # would hold the host until this device's queue drains)
+    b1_t, b2_t = (torch.tensor(b, dtype=f32, device=dev) for b in (b1, b2))
+    steps = torch.arange(1, cfg.num_epochs + 1, dtype=f32, device=dev)
     for i in range(cfg.num_epochs):
         p = params.detach().requires_grad_()
         pred = extended_tofts_batch(quad, p[:, 0], p[:, 1], p[:, 2])
@@ -180,9 +192,8 @@ def _adam_fit_chunk(curves: torch.Tensor, quad: ToftsQuadrature,
                 losses.append(torch.sum(row_mse))
             m = b1 * m + (1 - b1) * g
             v = b2 * v + (1 - b2) * g * g
-            t = torch.tensor(float(i + 1), dtype=f32, device=dev)
-            mhat = m / (1 - torch.tensor(b1, dtype=f32, device=dev) ** t)
-            vhat = v / (1 - torch.tensor(b2, dtype=f32, device=dev) ** t)
+            mhat = m / (1 - b1_t ** steps[i])
+            vhat = v / (1 - b2_t ** steps[i])
             params = params - cfg.lr * mhat / (torch.sqrt(vhat) + eps)
             params = torch.clamp(params, lo, hi)
     if with_losses:
@@ -191,34 +202,50 @@ def _adam_fit_chunk(curves: torch.Tensor, quad: ToftsQuadrature,
 
 
 def _fit_chunked(curves: np.ndarray, quad: ToftsQuadrature, cfg: PKConfig,
-                 chunk_fn: Callable) -> np.ndarray:
+                 chunk_fn: Callable,
+                 devices: Optional[Sequence[torch.device]] = None
+                 ) -> np.ndarray:
     """[N, T] numpy curves -> [N, 3] numpy, CHUNK voxels at a time on the
-    quadrature's device."""
+    quadrature's device, or on each of `devices` in turn (module
+    docstring)."""
     n = curves.shape[0]
     if n == 0:
         return np.zeros((0, 3), np.float32)
+    quads = [quad if torch.device(d) == quad.device else quad.to(d)
+             for d in devices] if devices else [quad]
     out = []
-    for start in range(0, n, CHUNK):
-        chunk = torch.from_numpy(np.array(
-            curves[start:start + CHUNK], dtype=np.float32)).to(quad.device)
-        out.append(chunk_fn(chunk, quad, cfg).cpu().numpy())
+    for start in range(0, n, CHUNK * len(quads)):
+        pending = []
+        for i, q in enumerate(quads):
+            lo = start + i * CHUNK
+            if lo >= n:
+                break
+            chunk = torch.from_numpy(np.array(
+                curves[lo:lo + CHUNK], dtype=np.float32)).to(q.device)
+            with device_scope(q.device):
+                pending.append(chunk_fn(chunk, q, cfg))
+        out.extend(p.cpu().numpy() for p in pending)
     return np.concatenate(out, axis=0)
 
 
 def fit_lm(curves: np.ndarray, quad: ToftsQuadrature, cfg: PKConfig,
-           backend: str = "auto") -> np.ndarray:
+           backend: str = "auto",
+           devices: Optional[Sequence[torch.device]] = None) -> np.ndarray:
     """[N, T] signal curves -> [N, 3] (Ktrans, ve, vp), projected
-    Levenberg-Marquardt on quad's device. backend "auto" takes the
-    quadrature sums through K4 on CUDA; "plain" through its plain version
-    (to compare the two)."""
+    Levenberg-Marquardt on quad's device, or voxel-sharded over `devices`.
+    backend "auto" takes the quadrature sums through K4 on CUDA; "plain"
+    through its plain version (to compare the two)."""
     return _fit_chunked(curves, quad, cfg,
-                        lambda c, q, k: _lm_fit_chunk(c, q, k, backend))
+                        lambda c, q, k: _lm_fit_chunk(c, q, k, backend),
+                        devices)
 
 
-def fit_adam(curves: np.ndarray, quad: ToftsQuadrature,
-             cfg: PKConfig) -> np.ndarray:
-    """[N, T] signal curves -> [N, 3], the reference's Adam solver."""
-    return _fit_chunked(curves, quad, cfg, _adam_fit_chunk)
+def fit_adam(curves: np.ndarray, quad: ToftsQuadrature, cfg: PKConfig,
+             devices: Optional[Sequence[torch.device]] = None
+             ) -> np.ndarray:
+    """[N, T] signal curves -> [N, 3], the reference's Adam solver, on
+    quad's device or voxel-sharded over `devices`."""
+    return _fit_chunked(curves, quad, cfg, _adam_fit_chunk, devices)
 
 
 def fit_adam_debug(curves: np.ndarray, quad: ToftsQuadrature,

@@ -5,7 +5,8 @@ drivers).
     python -m stf_unet_tpu_torch.pk.maps <BreaDM root> [--solver lm|adam]
         [--aif-method population|modified|auto] [--splits training,val,test]
         [--enhanced] [--debug] [--compare-aif]
-        [--num-shards N --shard-index i] [--device cuda|cpu]
+        [--num-shards N --shard-index i] [--data-parallel N]
+        [--device cuda|cpu]
 
 Writes `<root>/seg/<split>/pk_maps/<patient>/{ktrans,ve,vp}.png` with
 `{name}_raw.npy` and `combined_map.png`: the artifacts the dataset index
@@ -14,8 +15,11 @@ unless --device cpu is given. --enhanced fits through pk/enhanced.py's
 preprocessing and postprocessing; --debug writes pk/debug.py's renders
 under `<patient>/debug/` (matplotlib); --compare-aif writes the AIF
 methods' comparison under `<root>/seg/<split>/pk_aif_comparison/
-<patient>/` instead of the maps. --data-parallel waits for data
-parallelism (ROADMAP.md §1).
+<patient>/` instead of the maps. --data-parallel N splits each volume's
+voxel chunks over the first N visible GPUs from this one process (0: all
+of them; pk/fit.py), bit-identical to one device; --debug's fit stays on
+the first, as in the JAX package. --num-shards / --shard-index split the
+patients over independent processes instead.
 """
 
 from __future__ import annotations
@@ -23,32 +27,34 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 from PIL import Image
 
 from stf_unet_tpu_torch.core.config import PKConfig, resolve_device
+from stf_unet_tpu_torch.core.mesh import inference_devices
 from stf_unet_tpu_torch.pk.aif import auto_detect_aif, make_aif
 from stf_unet_tpu_torch.pk.debug import fit_with_debug, render_aif_debug
 from stf_unet_tpu_torch.pk.fit import fit_adam, fit_lm, preprocess_images
 from stf_unet_tpu_torch.pk.tofts import ToftsQuadrature
 
 PARAM_NAMES = ("ktrans", "ve", "vp")
-_UNPORTED = "is not ported to the PyTorch package yet (ROADMAP.md §1, " \
-            "'data-parallel inference')"
+Devices = Optional[List[torch.device]]
 
 
 def fit_volume(images: np.ndarray, cfg: PKConfig,
                output_dir: Optional[str] = None,
                debug_output_dir: Optional[str] = None,
-               device="cuda") -> np.ndarray:
+               device="cuda", devices: Devices = None) -> np.ndarray:
     """[T, H, W] signal volume -> [3, H, W] (Ktrans, ve, vp) maps
-    (ref:fit_volume_gpu, pk_fitting.py:233-420), fitted on `device`.
-    debug_output_dir: write the reference's diagnostic renders there
-    (pk/debug.py: sample voxel curves, Adam's loss curve, the auto AIF's
-    location, curve and derivative map)."""
-    dev = resolve_device(device)
+    (ref:fit_volume_gpu, pk_fitting.py:233-420), fitted on `device`, or
+    voxel-sharded over `devices` (pk/fit.py; the debug fit stays on the
+    first). debug_output_dir: write the reference's diagnostic renders
+    there (pk/debug.py: sample voxel curves, Adam's loss curve, the auto
+    AIF's location, curve and derivative map)."""
+    dev = devices[0] if devices else resolve_device(device)
     t_steps, height, width = images.shape
     if t_steps != len(cfg.time_points):
         # Missing SUBk sequences were warn-and-skipped while loading
@@ -79,9 +85,9 @@ def fit_volume(images: np.ndarray, cfg: PKConfig,
                              debug_output_dir, position=pos)
         fitted = fit_with_debug(valid, quad, cfg, debug_output_dir)
     elif cfg.solver == "lm":
-        fitted = fit_lm(valid, quad, cfg)  # [Nvalid, 3]
+        fitted = fit_lm(valid, quad, cfg, devices=devices)  # [Nvalid, 3]
     else:
-        fitted = fit_adam(valid, quad, cfg)
+        fitted = fit_adam(valid, quad, cfg, devices=devices)
     print(f"fit ({cfg.solver}) done in {time.time() - t0:.2f}s")
 
     param_maps = np.zeros((3, height * width), np.float32)
@@ -143,8 +149,8 @@ def _load_patient_frames(patient_path: str) -> Optional[np.ndarray]:
 
 def process_patient(patient_path: str, output_base_dir: str,
                     cfg: Optional[PKConfig] = None, enhanced: bool = False,
-                    debug: bool = False, device="cuda"
-                    ) -> Optional[np.ndarray]:
+                    debug: bool = False, device="cuda",
+                    devices: Devices = None) -> Optional[np.ndarray]:
     """Fit the first slice of each SUB1..8 sequence of one patient
     (ref:605-670); None when it has no subtraction frames. enhanced:
     through pk/enhanced.py's Otsu / bilateral preprocessing and the maps'
@@ -161,10 +167,12 @@ def process_patient(patient_path: str, output_base_dir: str,
     if enhanced:
         from stf_unet_tpu_torch.pk.enhanced import fit_volume_enhanced
         maps = fit_volume_enhanced(frames, cfg, output_dir,
-                                   debug_output_dir=debug_dir, device=device)
+                                   debug_output_dir=debug_dir, device=device,
+                                   devices=devices)
     else:
         maps = fit_volume(frames, cfg, output_dir,
-                          debug_output_dir=debug_dir, device=device)
+                          debug_output_dir=debug_dir, device=device,
+                          devices=devices)
     print(f"PK maps for patient {patient_id} saved to {output_dir}")
     return maps
 
@@ -183,7 +191,8 @@ def _split_patients(dataset_path: str, split: str, num_shards: int,
 def process_dataset(dataset_path: str, split: str = "training",
                     cfg: Optional[PKConfig] = None, enhanced: bool = False,
                     debug: bool = False, device="cuda",
-                    num_shards: int = 1, shard_index: int = 0) -> None:
+                    num_shards: int = 1, shard_index: int = 0,
+                    devices: Devices = None) -> None:
     """All patients of one split (ref:673-696). num_shards / shard_index:
     patient-level sharding over independent processes or machines; shard
     i fits patients i, i+N, i+2N, ..."""
@@ -200,7 +209,7 @@ def process_dataset(dataset_path: str, split: str = "training",
     for patient in patients:
         maps = process_patient(os.path.join(images_dir, patient), output_base,
                                cfg, enhanced=enhanced, debug=debug,
-                               device=device)
+                               device=device, devices=devices)
         done += maps is not None
     print(f"{split}: PK maps written for {done}/{len(patients)} patients")
     if patients and done == 0:
@@ -216,7 +225,8 @@ def generate_pk_maps_for_dataset(dataset_path: str,
                                  cfg: Optional[PKConfig] = None,
                                  enhanced: bool = False, debug: bool = False,
                                  device="cuda", num_shards: int = 1,
-                                 shard_index: int = 0) -> Dict[str, str]:
+                                 shard_index: int = 0,
+                                 devices: Devices = None) -> Dict[str, str]:
     """All splits (ref:699-722); the trainer's --generate-pk-maps calls it
     (ref:train.py:165-169). Returns split -> its pk_maps directory."""
     splits = splits or ["training", "val", "test"]
@@ -225,7 +235,7 @@ def generate_pk_maps_for_dataset(dataset_path: str,
         print(f"generating PK maps for {split}...")
         process_dataset(dataset_path, split, cfg, enhanced=enhanced,
                         debug=debug, device=device, num_shards=num_shards,
-                        shard_index=shard_index)
+                        shard_index=shard_index, devices=devices)
         out[split] = os.path.join(dataset_path, "seg", split, "pk_maps")
     return out
 
@@ -233,8 +243,8 @@ def generate_pk_maps_for_dataset(dataset_path: str,
 def compare_aif_for_dataset(dataset_path: str,
                             splits: Optional[Sequence[str]] = None,
                             cfg: Optional[PKConfig] = None, device="cuda",
-                            num_shards: int = 1,
-                            shard_index: int = 0) -> Dict[str, str]:
+                            num_shards: int = 1, shard_index: int = 0,
+                            devices: Devices = None) -> Dict[str, str]:
     """Each patient volume fitted (enhanced) with the population, modified
     and auto AIFs, each method's maps and the pairwise difference renders
     under `<root>/seg/<split>/pk_aif_comparison/<patient>/`
@@ -259,7 +269,7 @@ def compare_aif_for_dataset(dataset_path: str,
                 continue
             compare_aif_methods(frames, cfg,
                                 os.path.join(output_base, patient),
-                                device=device)
+                                device=device, devices=devices)
             print(f"AIF comparison for {patient} -> "
                   f"{os.path.join(output_base, patient)}")
         out[split] = output_base
@@ -293,20 +303,25 @@ def main(argv=None):
     ap.add_argument("--debug", action="store_true",
                     help="write diagnostic renders (sample curves, loss "
                          "curve, AIF maps) under <patient>/debug/")
-    ap.add_argument("--data-parallel", type=int, default=1, help=_UNPORTED)
+    ap.add_argument("--data-parallel", type=int, default=1,
+                    help="shard the voxel axis of the solver over N devices "
+                         "(0 = every visible GPU, 1 = one device)")
     args = ap.parse_args(argv)
-    if args.data_parallel != 1:
-        ap.error(f"--data-parallel {_UNPORTED}")
     cfg = PKConfig(aif_method=args.aif_method, solver=args.solver)
     splits = args.splits.split(",")
+    devices = None
+    if args.data_parallel != 1:
+        devices = inference_devices(args.data_parallel, args.device)
+        print(f"voxel-sharded fitting over {len(devices)} devices")
     if args.compare_aif:
         return compare_aif_for_dataset(
             args.dataset_path, splits, cfg, device=args.device,
-            num_shards=args.num_shards, shard_index=args.shard_index)
+            num_shards=args.num_shards, shard_index=args.shard_index,
+            devices=devices)
     return generate_pk_maps_for_dataset(
         args.dataset_path, splits, cfg, enhanced=args.enhanced,
         debug=args.debug, device=args.device, num_shards=args.num_shards,
-        shard_index=args.shard_index)
+        shard_index=args.shard_index, devices=devices)
 
 
 if __name__ == "__main__":

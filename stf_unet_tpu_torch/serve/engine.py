@@ -12,6 +12,11 @@
     a weight reload also takes (serve/http.SegmentationServer.reload).
   * With a TiledPredictor, inputs whose geometry is not the tile's are
     segmented at native resolution with sliding-window tiles.
+  * `devices=` (core/mesh.inference_devices): one process over N devices,
+    the JAX engine's `mesh=`. A replica of the model per device, buckets
+    floored at N, the padded batch split into N equal shards, each run
+    on its replica; every shard is enqueued before any comes back, and
+    the masks are concatenated in shard order.
 """
 
 from __future__ import annotations
@@ -19,13 +24,15 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from stf_unet_tpu_torch.core.config import resolve_device
+from stf_unet_tpu_torch.core.mesh import (device_scope, pad_batch_to_multiple,
+                                          replicate_module, split_rows)
 from stf_unet_tpu_torch.data.transforms import normalize
 from stf_unet_tpu_torch.models.registry import preprocess_input
 
@@ -34,19 +41,33 @@ class InferenceEngine:
     """Argmax-segmentation forward over raw uint8 inputs.
 
     predict() takes [B, T, h, w, 1] uint8 and returns int32 masks [B, h, w].
-    `model` is an eval-mode module on `device`. `tiled`: an optional
+    `model` is an eval-mode module on `device`, or on devices[0] when a
+    device list is given (module docstring). `tiled`: an optional
     serve.tiled.TiledPredictor over the same model; inputs whose (h, w)
-    is not its tile's go through it, one volume at a time.
+    is not its tile's go through it, one volume at a time. Over the same
+    devices it lends the engine its replicas.
     """
 
     def __init__(self, model: nn.Module, mean: float, std: float,
-                 max_batch: int = 8, device="cuda", tiled=None):
+                 max_batch: int = 8, device="cuda", tiled=None,
+                 devices: Optional[Sequence[torch.device]] = None):
         self.model = model
         self.tiled = tiled
         self.mean = float(mean)
         self.std = float(std)
         self.max_batch = int(max_batch)
-        self.device = resolve_device(device)
+        self.devices = ([resolve_device(d) for d in devices] if devices
+                        else [resolve_device(device)])
+        self.device = self.devices[0]
+        if self.max_batch < len(self.devices):
+            raise ValueError(
+                f"max_batch={max_batch} smaller than the "
+                f"{len(self.devices)} devices; batches could not shard")
+        if (tiled is not None and tiled.model is model
+                and tiled.devices == self.devices):
+            self.replicas = tiled.replicas
+        else:
+            self.replicas = replicate_module(model, self.devices)
         # masks leave the device as uint8 when classes fit a byte
         self._mask_dtype = (torch.uint8 if int(model.num_classes) <= 256
                             else torch.int32)
@@ -54,11 +75,16 @@ class InferenceEngine:
         self._lock = threading.Lock()
 
     def _bucket(self, n: int) -> int:
-        b = 1
+        """The JAX engine's bucket: powers of two from the device count
+        up; a non-power-of-two --max-batch is a memory cap, never padded
+        past, cut to a multiple of the device count."""
+        n_dev = len(self.devices)
+        b = n_dev
         while b < n and b < self.max_batch:
             b *= 2
-        # a non-power-of-two --max-batch is a memory cap: never pad past it
-        return min(b, self.max_batch)
+        if b > self.max_batch:
+            b = max(self.max_batch - self.max_batch % n_dev, n_dev)
+        return b
 
     def predict(self, images: np.ndarray, return_probs: bool = False):
         """images uint8 [B, T, h, w, 1] -> masks int32 [B, h, w];
@@ -73,21 +99,32 @@ class InferenceEngine:
                 return np.stack([self.tiled.predict(img) for img in images])
         n = images.shape[0]
         b = self._bucket(n)
+        if n > b:  # past the cap: shards must still be equal
+            b = pad_batch_to_multiple(n, len(self.devices))
         if n < b:  # pad by replicating row 0; sliced off below
             images = np.concatenate(
                 [images, np.repeat(images[:1], b - n, axis=0)], axis=0)
         with self._lock, torch.inference_mode():
             self.seen_shapes.add(tuple(images.shape))
-            x = torch.from_numpy(np.ascontiguousarray(images)).to(
-                self.device)
-            x = normalize(x, self.mean, self.std)
-            logits = self.model(preprocess_input(x, self.model))["out"]
-            masks = torch.argmax(logits, dim=-1).to(self._mask_dtype)
-            masks = masks.cpu().numpy().astype(np.int32)[:n]
+            outs = []
+            for model, dev, shard in zip(
+                    self.replicas, self.devices,
+                    split_rows(np.ascontiguousarray(images),
+                               len(self.devices))):
+                with device_scope(dev):
+                    x = normalize(torch.from_numpy(shard).to(dev),
+                                  self.mean, self.std)
+                    logits = model(preprocess_input(x, model))["out"]
+                    outs.append((
+                        torch.argmax(logits, dim=-1).to(self._mask_dtype),
+                        torch.softmax(logits, dim=-1).to(torch.float16)
+                        if return_probs else None))
+            masks = np.concatenate([m.cpu().numpy() for m, _ in outs])
+            masks = masks.astype(np.int32)[:n]
             if not return_probs:
                 return masks
-            probs = torch.softmax(logits, dim=-1).to(torch.float16)
-            return masks, probs.cpu().numpy()[:n]
+            return masks, np.concatenate([p.cpu().numpy()
+                                          for _, p in outs])[:n]
 
     def warmup(self, t_steps: int, h: int, w: int) -> None:
         """Build the kernels and run every batch bucket of one input

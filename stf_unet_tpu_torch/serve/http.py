@@ -17,8 +17,9 @@ Endpoints:
                             engine call, skips the dynamic batcher; not
                             in tiled mode).
   POST /v1/reload        -> re-read the checkpoint and swap the weights in
-                            place under the engine's lock (in-flight batches
-                            finish on the old weights); 409 when the
+                            place, in every replica, under the engine's
+                            lock (in-flight batches finish on the old
+                            weights); 409 when the
                             checkpoint no longer matches the served model,
                             when it cannot be read, and when the server has
                             no reloader.
@@ -35,10 +36,11 @@ import threading
 import time
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
+import torch
 import torch.nn as nn
 
 from stf_unet_tpu_torch.core.config import DataConfig
@@ -96,13 +98,15 @@ class SegmentationServer:
                  port: int = 0, max_batch: int = 8, window_ms: float = 5.0,
                  device="cuda", infer_timeout_s: float = 300.0,
                  tiled=None, weights: Optional[nn.Module] = None,
-                 reloader: Optional[Callable[[], Tuple[dict, dict]]] = None):
+                 reloader: Optional[Callable[[], Tuple[dict, dict]]] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
         """tiled: a serve.tiled.TiledPredictor over `model`: volumes ship
         at native resolution and those off its tile geometry are tiled.
         weights: the module whose state_dict a reload replaces (`model`
         itself unless that wraps it, as ops/tta.FlipTTAModel does).
         reloader: () -> (state_dict, info dict), re-reading the checkpoint;
-        enables POST /v1/reload."""
+        enables POST /v1/reload. devices: serve over these devices, a
+        replica of `model` on each (serve/engine.py)."""
         self.data_cfg = data_cfg
         self.model_name = model_name
         self.infer_timeout_s = float(infer_timeout_s)
@@ -112,7 +116,7 @@ class SegmentationServer:
         self._reload_lock = threading.Lock()
         self.engine = InferenceEngine(model, data_cfg.mean, data_cfg.std,
                                       max_batch=max_batch, device=device,
-                                      tiled=tiled)
+                                      tiled=tiled, devices=devices)
         self.batcher = DynamicBatcher(self.engine, max_batch=max_batch,
                                       window_ms=window_ms)
         self.stats = ServerStats()
@@ -136,12 +140,26 @@ class SegmentationServer:
             self._thread.join(timeout=5)
         self.batcher.close()
 
+    def _replica_weights(self) -> List[nn.Module]:
+        """The `weights` module of every replica of the engine and of the
+        tiled predictor (the module at the same path in each), once."""
+        model = self.engine.model
+        path = next(name for name, m in model.named_modules()
+                    if m is self.weights)
+        replicas = self.engine.replicas + (
+            self.tiled.replicas if self.tiled is not None else [])
+        unique = {id(r): r for r in replicas}.values()
+        return [r.get_submodule(path) for r in unique]
+
     def reload(self) -> dict:
-        """Re-read the checkpoint and swap the served weights in place,
-        under the engine's lock: a batch runs wholly on the old weights
-        or wholly on the new. A checkpoint whose keys or shapes differ
-        from the served model's is refused (an architecture change needs
-        a restart) and the old weights keep serving."""
+        """Re-read the checkpoint and swap the served weights in place in
+        every replica, under the engine's lock: a batch runs wholly on the
+        old weights or wholly on the new. A checkpoint whose keys or
+        shapes differ from the served model's is refused (an architecture
+        change needs a restart) and the old weights keep serving. The
+        state is the same for every replica (an int8 one comes from
+        QuantizedModel.state_from, device-free); each load copies it onto
+        its replica's device."""
         if self._reloader is None:
             raise RuntimeError("reload not configured for this server")
         with self._reload_lock:
@@ -153,7 +171,8 @@ class SegmentationServer:
                     "checkpoint on disk no longer matches the serving "
                     "model (key/shape change) - restart the server")
             with self.engine._lock:
-                self.weights.load_state_dict(state, strict=True)
+                for weights in self._replica_weights():
+                    weights.load_state_dict(state, strict=True)
             return info
 
     def preprocess(self, frames: np.ndarray

@@ -16,17 +16,24 @@ its trained tile geometry:
     for every class, so argmax of the accumulator is the blended argmax and
     it is never divided;
   * the argmax comes back as an int32 [H, W] mask, cropped to the input.
+
+`devices=` (core/mesh.inference_devices), the JAX predictor's `mesh=`:
+each tile group is split over one replica of the model per device (a
+group smaller than the device count leaves the last devices idle, where
+GSPMD pads), every part enqueued before any comes back; the logits are
+gathered on devices[0] and blended there in tile order, as on one device.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from stf_unet_tpu_torch.core.config import resolve_device
+from stf_unet_tpu_torch.core.mesh import device_scope, replicate_module
 from stf_unet_tpu_torch.data.transforms import normalize
 from stf_unet_tpu_torch.models.registry import preprocess_input
 
@@ -68,11 +75,13 @@ class TiledPredictor:
 
     predict() takes one volume, uint8 [T(+pk), H, W, 1] (the per-sample
     layout of InferenceEngine.predict), and returns an int32 [H, W] mask.
-    `model` is an eval-mode module on `device`.
+    `model` is an eval-mode module on `device`, or on devices[0] when a
+    device list is given (module docstring).
     """
 
     def __init__(self, model, mean: float, std: float, tile: int = 224,
-                 overlap: float = 0.5, device="cuda"):
+                 overlap: float = 0.5, device="cuda",
+                 devices: Optional[Sequence[torch.device]] = None):
         if not 0.0 <= float(overlap) < 1.0:
             raise ValueError(f"overlap must be in [0, 1), got {overlap}")
         self.model = model
@@ -80,7 +89,10 @@ class TiledPredictor:
         self.std = float(std)
         self.tile = int(tile)
         self.stride = max(int(round(self.tile * (1.0 - float(overlap)))), 1)
-        self.device = resolve_device(device)
+        self.devices = ([resolve_device(d) for d in devices] if devices
+                        else [resolve_device(device)])
+        self.device = self.devices[0]
+        self.replicas = replicate_module(model, self.devices)
         self.window = torch.from_numpy(gaussian_window(self.tile)).to(
             self.device)[:, :, None]
 
@@ -88,6 +100,14 @@ class TiledPredictor:
     def predict(self, image: np.ndarray) -> np.ndarray:
         """uint8 [T(+pk), H, W, 1] -> int32 [H, W] native-resolution
         mask."""
+        mask = torch.argmax(self.scores(image), dim=-1)
+        return mask.to(torch.int32).cpu().numpy()
+
+    @torch.inference_mode()
+    def scores(self, image: np.ndarray) -> torch.Tensor:
+        """uint8 [T(+pk), H, W, 1] -> the blended float32 accumulator
+        [H, W, C] on the first device, whose argmax is the mask (what a
+        caller reads a pixel's top-two margin from)."""
         if image.ndim != 4 or image.shape[-1] != 1:
             raise ValueError(
                 f"expected [T, H, W, 1], got shape {image.shape}")
@@ -106,9 +126,18 @@ class TiledPredictor:
         for group in _chunks(offsets, MAX_TILE_BATCH):
             tiles = torch.stack([x[:, y:y + tile, xo:xo + tile, :]
                                  for (y, xo) in group])  # [n, T, t, t, 1]
-            logits = self.model(preprocess_input(
-                tiles, self.model))["out"].to(torch.float32)
+            parts = []
+            for model, dev, rows in zip(
+                    self.replicas, self.devices,
+                    np.array_split(np.arange(len(group)),
+                                   len(self.replicas))):
+                if len(rows):
+                    with device_scope(dev):
+                        parts.append(model(preprocess_input(
+                            tiles[rows[0]:rows[-1] + 1].to(dev),
+                            model))["out"])
+            logits = (parts[0] if len(parts) == 1 else torch.cat(
+                [p.to(self.device) for p in parts])).to(torch.float32)
             for i, (y, xo) in enumerate(group):
                 acc[y:y + tile, xo:xo + tile, :] += logits[i] * self.window
-        mask = torch.argmax(acc[:h, :w, :], dim=-1)
-        return mask.to(torch.int32).cpu().numpy()
+        return acc[:h, :w, :]

@@ -368,11 +368,35 @@ def test_patient_shards_partition_the_split(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--data-parallel", "2"]])
-def test_maps_cli_refuses_unported_flags(flag, capsys):
-    with pytest.raises(SystemExit):
-        pmaps.main(["/nonexistent", *flag])
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "data-parallel inference" in err
+def test_maps_cli_refuses_unported_flags(flag, sub_tree, tmp_path, capsys,
+                                         monkeypatch):
+    """--data-parallel, which the CLI took up: the port's voxel shards
+    over two CPU replicas bit-equal to one device, and JAX's CLI over its
+    2-device mesh within FIT_TOL on FIT_SHARE of the pixels; more GPUs
+    than are visible are refused naming the count."""
+    roots = {}
+    for name in ("port", "one", "jax"):
+        roots[name] = str(tmp_path / name)
+        shutil.copytree(sub_tree, roots[name])
+    argv = ["--splits", "training"]
+    pmaps.main([roots["port"], *argv, *flag, "--device", "cpu"])
+    assert "voxel-sharded fitting over 2 devices" in capsys.readouterr().out
+    pmaps.main([roots["one"], *argv, "--device", "cpu"])
+    jmaps.main([roots["jax"], *argv, *flag])
+    for patient in ("P000", "P001"):
+        got, one, want = (
+            np.stack([np.load(os.path.join(root, "seg", "training",
+                                           "pk_maps", patient,
+                                           f"{n}_raw.npy"))
+                      for n in pmaps.PARAM_NAMES]).reshape(3, -1).T
+            for root in (roots["port"], roots["one"], roots["jax"]))
+        np.testing.assert_array_equal(got, one)
+        assert np.isfinite(got).all() and (got != 0).any()
+        assert _share_within(got, want) >= FIT_SHARE
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="asks for 2 GPUs but 1 are"):
+        pmaps.main([roots["port"], *argv, *flag])
 
 
 def _files(root):

@@ -362,14 +362,24 @@ def test_pipeline_runs_random_weights_without_a_checkpoint(setup, tmp_path,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--data-parallel", "2"], "data-parallel inference"),
-    (["--data-parallel", "0"], "data-parallel inference"),
+    (["--data-parallel", "2"], "batches sharded over 2 devices"),
+    (["--data-parallel", "0"], "batches sharded over 1 devices"),
 ])
-def test_predict_refusals_name_their_item(argv, item, capsys):
-    with pytest.raises(SystemExit):
-        predict.parse_args(["--input", "x", *argv])
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and item in err
+def test_predict_refusals_name_their_item(setup, argv, item, capsys,
+                                          monkeypatch):
+    """--data-parallel, which cli.predict took up: both CLIs on the
+    images tree (JAX over its 2- or 8-device mesh; the port's replicas on
+    the CPU, 0 giving one there), the same masks; more GPUs than are
+    visible are refused naming the count."""
+    out = _run_both(setup, f"dp{argv[1]}", setup["images"], *argv)
+    assert item in capsys.readouterr().out
+    _assert_masks_match(out)
+    assert out["port"]["slices"] == out["jax"]["slices"] == 4
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="asks for 2 GPUs but 1 are"):
+        predict.main(["--input", "x", "--data-parallel", "2"])
+    monkeypatch.undo()
     args = predict.parse_args(["--input", "x"])
     assert (args.device, args.dtype, args.pk_solver) == ("cuda", "f32", "lm")
     if not torch.cuda.is_available():

@@ -141,15 +141,30 @@ def test_prometheus_metrics(server):
     assert "stf_requests_total" in text and "stf_mean_batch_size" in text
 
 
-def test_cli_flags(capsys):
+def test_cli_flags(capsys, weights, server):
+    """The flags' defaults; --data-parallel 2 --device cpu serves from two
+    replicas, whose masks are the one-device server's."""
     args = parse_args(["--weights", "m.pth"])
-    assert (args.model, args.dtype, args.device, args.max_batch) == \
-        ("stflstm", "bf16", "cuda", 8)
+    assert (args.model, args.dtype, args.device, args.max_batch,
+            args.data_parallel) == ("stflstm", "bf16", "cuda", 8, 1)
     assert parse_args(["--weights", "m.pth", "--dtype", "int8"]).dtype == \
         "int8"
-    with pytest.raises(SystemExit):
-        parse_args(["--weights", "m.pth", "--data-parallel", "2"])
-    assert "data-parallel inference" in capsys.readouterr().err
+    capsys.readouterr()
+    two = build_server(parse_args(
+        ["--weights", weights, "--port", "0", "--device", "cpu",
+         "--dtype", "f32", "--crop-size", str(CROP), "--max-batch", "2",
+         "--no-warmup", "--data-parallel", "2"]))
+    try:
+        assert "data-parallel serving over 2 devices" in \
+            capsys.readouterr().out
+        assert len(two.engine.replicas) == 2
+        images = np.stack([server.preprocess(_frames(64, 64, seed=i))[0]
+                           for i in range(2)])
+        np.testing.assert_array_equal(two.engine.predict(images),
+                                      server.engine.predict(images))
+    finally:
+        two.batcher.close()
+        two.httpd.server_close()
 
 
 @pytest.mark.parametrize("shape", [(3, 256, 256), (2, 300, 240),
