@@ -173,6 +173,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
      volume bit-equal; (c) B=8 predict and a two-chunk fit_lm on one replica
      against two (wall, events, the card's idle share); with several
      GPUs, over 1, 2 and all of them.
+ 23. spatial parallelism, image rows over a 2-D group's space axis
+     (parallel/spatial.py), in child processes: (a) two gloo ranks on
+     the one card (1 x 2) against one process, full-width STF at crop
+     224, B=4: an f32 step within SP_LOSS_RTOL / SP_UPDATE_RTOL per
+     parameter group (a control without halos outside), a bf16 step
+     within its bounds with each rank's peak memory and the launches of
+     K1f, K1b and K2 on each rank, ms per bf16 step, the share of a step
+     in the space group's collectives, and the gathered bf16 eval
+     logits against one process's (SP_LOGIT_REL, near-tie masks); (b)
+     with 2+ GPUs, cli/train --spatial-parallel 2 under NCCL for one
+     epoch (ms per step, each rank's peak memory), else a skip line.
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -4258,6 +4269,385 @@ def dp_inference_phase(tmpdir: str, data: str, weights: str,
     return launches
 
 
+# Phase 23, spatial parallelism (parallel/spatial.py): image rows sharded
+# over the space axis of a 2-D group. (a) two gloo ranks on the one card
+# (a 1 x 2 mesh, both on cuda:0 as phase 21's ranks) against one process,
+# the full-width STF-LSTM-UNet at crop 224, B = SP_BATCH, from the seeded
+# weights and the tree's first batch, cuDNN deterministic: one f32 step
+# (the tight check, with a control whose halos are replaced by the edge
+# padding, which the bound must catch), one bf16 step (its per-rank peak
+# memory and the launches of K1f, K1b and K2 on each rank), SP_TIMED bf16
+# steps (ms per step, the two ranks sharing the card), one bf16 step with
+# the space group's collectives timed (the halo share), and a bf16 eval
+# forward of the val split's first SP_BATCH images, gathered, against the
+# unsharded logits. (b) where 2+ GPUs are visible, cli/train
+# --spatial-parallel 2 (--data-parallel 2 with 4) under NCCL, one short
+# epoch with evaluation: ms per step and each rank's peak memory.
+SP_BATCH = 4
+SP_TIMED = 5
+SP_EPS = 0.1     # AdamW eps: the update stays linear in the gradient
+SP_LR = 1e-3
+# Tolerances, written before the first run. f32: the one-process step
+# against itself re-sharded reorders f32 sums (BN statistics over two
+# ranks' rows, convs on halo-padded blocks): phase 21's step-1 bounds
+# (loss 1e-4 relative; ||theta_sp - theta_1p|| / ||theta_1p - theta_0||
+# 2e-2 per parameter group). bf16: the loss within 1e-2 relative, and
+# each group's update distance within twice the bf16 step's own distance
+# from the f32 step (sharding may add no more than bf16 rounding does)
+# or SP_BF16_FLOOR. Eval logits: max |diff| within SP_LOGIT_REL of max
+# |logit|, and a mask pixel may differ only where one process's top-two
+# margin is within 1/32 of max |logit| (phase 22's near-tie bound).
+SP_LOSS_RTOL = {"f32": 1e-4, "bf16": 1e-2}
+SP_UPDATE_RTOL = 2e-2
+SP_BF16_FLOOR = 5e-2
+SP_LOGIT_REL = 2.0 ** -5
+SP_GROUPS = {"encoder": ("conv1.", "bn1.", "layer"), "lstm": ("lstm",),
+             "decoder": ("decoder", "upconv1.", "final")}
+
+SP_CHILD = r"""
+import json, sys
+import torch
+import chip_smoke as cs
+from stf_unet_tpu_torch.core import distributed, mesh as mesh_lib
+
+data, out, rank, world, port = (sys.argv[1], sys.argv[2], int(sys.argv[3]),
+                                int(sys.argv[4]), sys.argv[5])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda", 0)
+group = None
+if world > 1:
+    distributed.initialize(f"localhost:{port}", world, rank, device=dev,
+                           backend="gloo")
+    group = mesh_lib.create_2d_mesh(1, world, dev)
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.use_deterministic_algorithms(True, warn_only=True)
+json.dump(cs.sp_side(data, group, out), open(out + ".json", "w"))
+if group is not None:
+    distributed.shutdown()
+"""
+
+SP_CLI_CHILD = r"""
+import json, sys
+from stf_unet_tpu_torch.cli import train as train_cli
+
+out, argv = sys.argv[1], sys.argv[2:]
+result = train_cli.run(argv)
+json.dump({"epochs": result["epochs"], "steps": result["steps"],
+           "test_dice": result["test"]["dice"],
+           "peak_memory_mb_by_rank": result["peak_memory_mb_by_rank"]},
+          open(out, "w"))
+"""
+
+
+def sp_side(data: str, group, out: str, device: str = "cuda") -> dict:
+    """(a) on one side (`group` the 1 x 2 mesh, or None for one process):
+    the steps and the eval forward; the parameters after each step (and
+    the start), and the gathered eval logits, saved to `out`.pt by rank
+    0."""
+    import torch
+
+    from stf_unet_tpu_torch.core.config import (DataConfig, ModelConfig,
+                                                OptimConfig)
+    from stf_unet_tpu_torch.core.prng import augment_generator
+    from stf_unet_tpu_torch.data.index import DatasetIndex
+    from stf_unet_tpu_torch.data.loader import HostLoader
+    from stf_unet_tpu_torch.data.transforms import TrainAugment, normalize
+    from stf_unet_tpu_torch.models.registry import (create_model,
+                                                    preprocess_input)
+    from stf_unet_tpu_torch.parallel import spatial
+    from stf_unet_tpu_torch.train.loop import (eval_batches_from_index,
+                                               train_step)
+    from stf_unet_tpu_torch.train.state import (TrainState, data_parallel,
+                                                make_optimizer)
+
+    dev = group.device if group is not None else torch.device(device)
+    cfg = DataConfig(data_path=data, use_subtraction=True,
+                     base_size=TRAIN_SRC, crop_size=TRAIN_CROP)
+    seqs = cfg.resolved_sequence_types
+    host = next(iter(HostLoader(DatasetIndex(data, "train", seqs), SP_BATCH,
+                                shuffle=False, prefetch=0,
+                                verbose=False).epoch(0)))
+    image, _ = next(iter(eval_batches_from_index(
+        DatasetIndex(data, "val", seqs), cfg, batch_size=SP_BATCH)))
+
+    def fresh(dtype, ddp=True):
+        torch.manual_seed(0)
+        model = create_model(ModelConfig(model="stflstm"),
+                             dtype=dtype).to(dev)
+        ddp = (data_parallel(model, group) if group is not None and ddp
+               else None)
+        return TrainState(model, make_optimizer(OptimConfig(eps=SP_EPS),
+                                                model, dev),
+                          group=group, ddp=ddp)
+
+    def step(state, s=0):
+        return train_step(state, TrainAugment(cfg), host,
+                          augment_generator(0, 0, s), lambda _: SP_LR, 2,
+                          dev)[0].item()
+
+    def params(model):
+        return {n: p.detach().cpu().clone()
+                for n, p in model.named_parameters()}
+
+    def edge_padding(x, above, below, group, fill=0.0):
+        edge = list(x.shape[:-2])
+        return (x.new_full(edge + [above, x.shape[-1]], fill),
+                x.new_full(edge + [below, x.shape[-1]], fill))
+
+    saved, res = {}, {}
+    kinds = ["f32"] + (["no_halo"] if group is not None else []) + ["bf16"]
+    for kind in kinds:
+        state = fresh(torch.bfloat16 if kind == "bf16" else torch.float32)
+        if kind == "f32":
+            saved["start"] = params(state.model)
+        kernels = reset_counts()
+        halo = spatial.halo_rows
+        if kind == "no_halo":
+            spatial.halo_rows = edge_padding
+        try:
+            loss = step(state)
+        finally:
+            spatial.halo_rows = halo
+        res[kind] = {"loss": loss,
+                     "launches": {n: f.launches for n, f in kernels.items()}}
+        saved[kind] = params(state.model)
+    # the bf16 state's second step: its peak over what the parameters,
+    # gradients and AdamW moments already hold is the step's activations
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    step(state, 1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    res["bf16"].update(peak_mb=peak / 2**20, before_mb=before / 2**20,
+                       activation_mb=(peak - before) / 2**20)
+    # bf16 ms per step, then one step with the space group's collectives
+    # timed on a synchronized host clock
+    res["step_ms"] = cuda_ms(lambda: step(state, 2), iters=SP_TIMED,
+                             warmup=1)
+    comm = {"all_gather": 0.0, "all_reduce": 0.0, "calls": 0}
+    wrapped = {}
+    if group is not None:
+        for name in ("all_gather", "all_reduce"):
+            wrapped[name] = getattr(spatial._Space, name)
+
+            def timed(self, x, _fn=wrapped[name], _name=name):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = _fn(self, x)
+                torch.cuda.synchronize()
+                comm[_name] += time.perf_counter() - t0
+                comm["calls"] += 1
+                return y
+
+            setattr(spatial._Space, name, timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, 3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in wrapped.items():
+            setattr(spatial._Space, name, fn)
+    res["comm"] = {**comm, "step_s": wall, "share": (
+        (comm["all_gather"] + comm["all_reduce"]) / wall)}
+    # the eval forward (bf16) of the seeded weights, gathered on every
+    # rank
+    model = fresh(torch.bfloat16, ddp=False).model.eval()
+    x = normalize(torch.from_numpy(image).to(dev), cfg.mean, cfg.std)
+    with torch.no_grad():
+        if group is None:
+            logits = model(preprocess_input(x, model))["out"]
+        else:
+            with spatial.row_sharded(group, *x.shape[2:4]):
+                logits = model(preprocess_input(
+                    spatial.cut_rows(group, x, 2), model))["out"]
+            logits = spatial.gather_rows(logits, group, dim=1)
+    saved["logits"] = logits.float().cpu()
+    if group is None or group.is_main:
+        torch.save(saved, out + ".pt")
+    return res
+
+
+def sp_gaps(got: dict, ref: dict, start: dict) -> dict:
+    """||got - ref|| / ||ref - start|| over each parameter group and over
+    all parameters."""
+    def sq(a, b):
+        return float((a.double() - b.double()).pow(2).sum())
+
+    out = {}
+    for group, prefixes in list(SP_GROUPS.items()) + [("all", ("",))]:
+        names = [n for n in ref if n.startswith(prefixes)]
+        out[group] = (sum(sq(got[n], ref[n]) for n in names)
+                      / max(sum(sq(ref[n], start[n]) for n in names),
+                            1e-300)) ** 0.5
+    return out
+
+
+def _sp_cli(tmpdir: str, data: str, name: str, flags) -> dict:
+    """One cli/train run (bf16, B=TRAIN_BATCH, crop 224, one epoch with
+    evaluation) with `flags`: its result, the ranks' s / it of the
+    epoch, and its wall time."""
+    import re
+
+    out = os.path.join(tmpdir, f"{name}.json")
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-c", SP_CLI_CHILD, out, "--data-path", data,
+           "--model", "stflstm", "--amp", "true", "--use-subtraction",
+           *flags, "--batch-size", str(TRAIN_BATCH), "--epochs", "1",
+           "--eval-batch-size", str(SP_BATCH),
+           "--data-base-size", str(TRAIN_SRC),
+           "--data-crop-size", str(TRAIN_CROP),
+           "--save-dir", os.path.join(tmpdir, f"weights_{name}"),
+           "--output-dir", os.path.join(tmpdir, f"out_{name}"),
+           "--print-freq", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                          timeout=DP_CHILD_TIMEOUT)
+    wall = time.perf_counter() - t0
+    print(proc.stdout[-3000:], flush=True)
+    check(proc.returncode == 0, f"cli/train {flags} failed: "
+                                f"{proc.stderr[-3000:]}{proc.stdout[-3000:]}")
+    with open(out) as f:
+        run = json.load(f)
+    losses = [e["train_loss"] for e in run["epochs"]]
+    check(all(np.isfinite(losses)) and np.isfinite(run["test_dice"]),
+          f"cli/train {flags}: losses {losses}")
+    return {"flags": flags, "steps": run["steps"], "losses": losses,
+            "test_dice": run["test_dice"],
+            "ms_per_step_by_rank": [float(v) * 1e3 for v in re.findall(
+                r"Epoch: \[0\] Total time: \S+ \(([0-9.]+) s / it\)",
+                proc.stdout)],
+            "peak_memory_mb_by_rank": run["peak_memory_mb_by_rank"],
+            "wall_s": wall}
+
+
+def spatial_cards_run(tmpdir: str, data: str) -> dict:
+    """(b): cli/train --spatial-parallel 2 under NCCL over the visible
+    GPUs (2 x 2 with four, 1 x 2 with two or three), one epoch, beside
+    the same run on one GPU."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        return {"spatial_parallel_cards": "skipped: 1 GPU"}
+    n_data = 2 if count >= 4 else 1
+    return {"spatial_parallel_cards": {
+        "gpus": count, "mesh": f"{n_data}x2", "batch": TRAIN_BATCH,
+        "spatial": _sp_cli(tmpdir, data, "sp_cards", [
+            "--spatial-parallel", "2", "--data-parallel", str(n_data)]),
+        "one_gpu": _sp_cli(tmpdir, data, "sp_one", [
+            "--data-parallel", "1"])}}
+
+
+def spatial_parallel_phase(tmpdir: str, data: str) -> dict:
+    """23. (a) and (b) above. Returns the launch counts of (a)'s two
+    ranks' steps."""
+    import torch
+
+    from stf_unet_tpu_torch.core.distributed import free_port
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    port = str(free_port())
+    outs = [os.path.join(tmpdir, f"sp_rank{r}") for r in range(2)]
+    _run_children([[sys.executable, "-c", SP_CHILD, data, outs[r], str(r),
+                    "2", port] for r in range(2)], here)
+    solo = os.path.join(tmpdir, "sp_solo")
+    _run_children([[sys.executable, "-c", SP_CHILD, data, solo, "0", "1",
+                    "0"]], here)
+    line = sp_compare(outs, solo)
+    cards = spatial_cards_run(tmpdir, data)
+    print(json.dumps({**cards, "phase_wall_s":
+                      time.perf_counter() - t_phase}), flush=True)
+    return {name: sum(c.get(name, 0) for c in line["launches_by_rank"])
+            for name in counters()}
+
+
+def sp_compare(outs, solo: str) -> dict:
+    """(a)'s checks: the two ranks' results (files `outs`) against the one
+    process's (`solo`). Prints the line and returns it."""
+    import torch
+
+    ranks = []
+    for o in outs:
+        with open(o + ".json") as f:
+            ranks.append(json.load(f))
+    with open(solo + ".json") as f:
+        one = json.load(f)
+    got = torch.load(outs[0] + ".pt", weights_only=True)
+    ref = torch.load(solo + ".pt", weights_only=True)
+    start = ref["start"]
+    check(all(torch.equal(got["start"][n], w) for n, w in start.items()),
+          "the ranks started from other weights")
+    gaps = {kind: sp_gaps(got[kind], ref[kind], start)
+            for kind in ("f32", "bf16")}
+    gaps["no_halo_control"] = sp_gaps(got["no_halo"], ref["f32"], start)
+    gaps["bf16_1proc_vs_f32_1proc"] = sp_gaps(ref["bf16"], ref["f32"],
+                                              start)
+    loss_rel = {kind: abs(ranks[0][kind]["loss"] - one[kind]["loss"])
+                / abs(one[kind]["loss"]) for kind in ("f32", "bf16")}
+    logits, want = got["logits"], ref["logits"]
+    logit_rel = float((logits - want).abs().max() / want.abs().max())
+    masks = _margin_check("spatial eval forward", want,
+                          want.argmax(-1).numpy(),
+                          logits.argmax(-1).numpy())
+    memory = {"rank_activation_mb": [r["bf16"]["activation_mb"]
+                                     for r in ranks],
+              "one_process_activation_mb": one["bf16"]["activation_mb"],
+              "rank_peak_mb": [r["bf16"]["peak_mb"] for r in ranks],
+              "one_process_peak_mb": one["bf16"]["peak_mb"]}
+    memory["activation_ratio"] = [m / memory["one_process_activation_mb"]
+                                  for m in memory["rank_activation_mb"]]
+    memory["peak_ratio"] = [m / memory["one_process_peak_mb"]
+                            for m in memory["rank_peak_mb"]]
+    line = {
+        "mesh": "1x2 (gloo, both ranks on cuda:0)", "batch": SP_BATCH,
+        "crop": TRAIN_CROP, "loss": {k: {"2ranks": ranks[0][k]["loss"],
+                                         "1proc": one[k]["loss"],
+                                         "rel": loss_rel[k]}
+                                     for k in ("f32", "bf16")},
+        "update_rel_l2": gaps, "eval_logits_rel": logit_rel,
+        "eval_masks": masks, "memory": memory,
+        "step_ms": {"2ranks": [r["step_ms"] for r in ranks],
+                    "1proc": one["step_ms"],
+                    "note": "bf16; the two ranks share the one card"},
+        "space_comm": [r["comm"] for r in ranks],
+        "launches_by_rank": [r["bf16"]["launches"] for r in ranks],
+        "tolerance": {"loss_rtol": SP_LOSS_RTOL,
+                      "update_rtol_f32": SP_UPDATE_RTOL,
+                      "update_bf16": "2 x bf16-vs-f32 or "
+                                     f"{SP_BF16_FLOOR}",
+                      "logit_rel": SP_LOGIT_REL}}
+    print(json.dumps({"spatial_parallel": line}), flush=True)
+    for kind, tol in SP_LOSS_RTOL.items():
+        check(loss_rel[kind] <= tol, f"{kind} loss {loss_rel[kind]:.3g} "
+                                     f"relative from one process ({tol})")
+    for group in SP_GROUPS:
+        f32 = gaps["f32"][group]
+        check(f32 <= SP_UPDATE_RTOL, f"f32 {group}: parameters {f32:.3g} "
+                                     f"of the update from one process")
+        bound = max(2 * gaps["bf16_1proc_vs_f32_1proc"][group],
+                    SP_BF16_FLOOR)
+        check(gaps["bf16"][group] <= bound,
+              f"bf16 {group}: {gaps['bf16'][group]:.3g} of the update from "
+              f"one process (bound {bound:.3g})")
+    control = gaps["no_halo_control"]["all"]
+    check(control > SP_UPDATE_RTOL, f"ranks without halos came "
+                                     f"{control:.3g} of the update from one "
+                                     f"process, within the bound")
+    check(logit_rel <= SP_LOGIT_REL, f"sharded eval logits {logit_rel:.3g} "
+                                     f"of max |logit| from one process")
+    for r, counts in enumerate(line["launches_by_rank"]):
+        for name in ("lstm_last_x", "lstm_last_x_bwd", "warp"):
+            check(counts[name] > 0, f"{name} never launched on rank {r}")
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4363,6 +4753,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         deploy["data_parallel_inference"] = dp_inference_phase(
             tmpdir, data, stf_weights)
+        # spatial parallelism: two gloo ranks on the card against one
+        # process; cli/train over the GPUs where there are several
+        torch.cuda.empty_cache()
+        deploy["spatial_parallel"] = spatial_parallel_phase(tmpdir, data)
     for name in ("quant_patches", "quant_epilogue"):
         agg[name]["device_ms"] = int8_forwards["stflstm"]["int8_split_b8"][
             f"{name}_ms"]

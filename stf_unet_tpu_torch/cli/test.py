@@ -25,7 +25,10 @@ rank restores the checkpoint and evaluates its shard of the test records
 (records[rank::N]) at any batch size, the metrics are summed over the
 ranks, and rank 0 gathers the outputs in record order
 (train/loop.gather_eval_outputs) and writes the renders and reports.
-With --tiled the tiles are not split: rank 0 runs the pass alone.
+With --tiled the same: each rank runs the tiled predictor over its
+records, the confusion and dice are summed over the ranks, and rank 0
+gathers every record's mask and writes the renders and the per-patient
+report in record order.
 """
 
 from __future__ import annotations
@@ -179,15 +182,15 @@ def test(args: argparse.Namespace, group=None) -> dict:
                          "argmax masks only")
 
     if group is not None:
-        print(("tiled pass on rank 0 of " if args.tiled
-               else "test records sharded over ") + f"{group.world} ranks")
+        print(f"test records sharded over {group.world} ranks"
+              + (" (tiled)" if args.tiled else ""))
     if args.tiled:
-        if not is_main:
-            return {}
         metrics = _test_tiled(args, model, data_cfg, num_classes,
-                              test_index, device, pack)
-        metrics["seconds"] = {"restore": restore_s,
-                              "test": time.perf_counter() - t0 - restore_s}
+                              test_index, device, pack, group)
+        if is_main:
+            metrics["seconds"] = {
+                "restore": restore_s,
+                "test": time.perf_counter() - t0 - restore_s}
         return metrics
 
     print("Running inference on test set...")
@@ -292,11 +295,14 @@ def _per_patient_report(test_index: DatasetIndex, outputs, batches,
 
 def _test_tiled(args: argparse.Namespace, model, data_cfg,
                 num_classes: int, test_index: DatasetIndex,
-                device: torch.device, pack=None) -> dict:
+                device: torch.device, pack=None, group=None) -> dict:
     """Native-resolution test pass: sliding-window tiles at the trained
     crop (serve/tiled.TiledPredictor), metrics against the
     native-resolution masks with evaluate()'s confusion and dice. The
-    samples come from the dataset `pack` when one is given."""
+    samples come from the dataset `pack` when one is given. In a group
+    each rank predicts records[rank::world]; the sums are reduced over
+    the ranks and rank 0 renders and aggregates every record in record
+    order (the other ranks return {})."""
     from stf_unet_tpu_torch.data.loader import load_sample_raw_native
     from stf_unet_tpu_torch.metrics.confusion import (confusion_init,
                                                       confusion_report,
@@ -317,10 +323,22 @@ def _test_tiled(args: argparse.Namespace, model, data_cfg,
     if args.per_patient or args.surface_metrics:
         from stf_unet_tpu_torch.metrics.patient import PatientAggregator
         agg = PatientAggregator(num_classes, surface=args.surface_metrics)
-    os.makedirs(args.output_dir, exist_ok=True)
     print(f"Running tiled native-resolution inference on test set "
           f"(tile={predictor.tile}, stride={predictor.stride})...")
-    for idx, rec in enumerate(test_index.records):
+    os.makedirs(args.output_dir, exist_ok=True)
+
+    def emit(idx, mask, pred, frame0):
+        raw0 = (frame0.astype(np.float32) / 255.0
+                - data_cfg.mean) / data_cfg.std
+        save_overlay(pred, raw0, args.output_dir, idx, prefix=args.model)
+        if agg is not None:
+            agg.update(test_index.records[idx].patient_id,
+                       mask.astype(np.int32), pred)
+
+    rank, world = (group.rank, group.world) if group is not None else (0, 1)
+    rows = []  # a group's (record index, mask, prediction, frame 0)
+    for idx in range(len(test_index.records))[rank::world]:
+        rec = test_index.records[idx]
         if pack is not None:  # decode-free native-resolution frames
             frames, mask, pk, _ = pack.sample(
                 idx, use_pk_maps=data_cfg.use_pk_maps)
@@ -339,11 +357,21 @@ def _test_tiled(args: argparse.Namespace, model, data_cfg,
             dice_cum, dice_count,
             F.one_hot(pred_t, num_classes).to(torch.float32), target,
             ignore_index=255)
-        raw0 = (frames[0].astype(np.float32) / 255.0
-                - data_cfg.mean) / data_cfg.std
-        save_overlay(pred, raw0, args.output_dir, idx, prefix=args.model)
-        if agg is not None:
-            agg.update(rec.patient_id, mask.astype(np.int32), pred)
+        if group is None:
+            emit(idx, mask, pred, frames[0])
+        else:
+            rows.append((idx, mask, pred, frames[0]))
+    if group is not None:
+        sums = torch.tensor([dice_count], dtype=torch.int64, device=device)
+        for t in (conf, dice_cum, sums):
+            mesh_lib.all_sum(group, t)
+        dice_count = int(sums.item())
+        parts = mesh_lib.gather_to_main(group, rows)
+        if parts is None:
+            return {}
+        for row in sorted((row for part in parts for row in part),
+                          key=lambda row: row[0]):
+            emit(*row)
 
     patient_report = None
     if agg is not None:

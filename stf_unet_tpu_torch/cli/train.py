@@ -51,7 +51,7 @@ import datetime
 import json
 import os
 import time
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +67,7 @@ from stf_unet_tpu_torch.data.index import DatasetIndex
 from stf_unet_tpu_torch.data.loader import HostLoader
 from stf_unet_tpu_torch.data.transforms import TrainAugment
 from stf_unet_tpu_torch.metrics.binary import compute_metrics
+from stf_unet_tpu_torch.metrics.meters import device_peak_memory_mb
 from stf_unet_tpu_torch.models.registry import create_model
 from stf_unet_tpu_torch.train.checkpoint import CheckpointManager
 from stf_unet_tpu_torch.train.early_stop import EarlyStopping
@@ -77,6 +78,7 @@ from stf_unet_tpu_torch.train.preempt import PreemptionGuard
 from stf_unet_tpu_torch.train.schedule import warmup_poly_schedule
 from stf_unet_tpu_torch.train.state import (TrainState, data_parallel,
                                             ema_copy, make_optimizer)
+from stf_unet_tpu_torch.utils.profiling import JsonlLogger
 from stf_unet_tpu_torch.viz.comparison import save_comparison
 
 
@@ -149,11 +151,30 @@ def _check_resume(meta_cfg: str, k: int, use_ema: bool) -> None:
             "setting (the state structure differs)")
 
 
+def _writers(cfg: TrainConfig, is_main: bool
+             ) -> Tuple[Optional[str], Optional[JsonlLogger]]:
+    """The results .txt path and the JSONL metrics writer of this
+    process: both on the one writer (rank 0) unless --silent, the JSONL
+    unless --jsonl-metrics false; None where there is none."""
+    if cfg.silent or not is_main:
+        return None, None
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    stamp = datetime.datetime.now().strftime("%m%d-%H%M")
+    name = f"{cfg.model.model}_{{}}_{stamp}{cfg.tag_suffix}"
+    jsonl = (JsonlLogger(os.path.join(cfg.output_dir,
+                                      name.format("metrics") + ".jsonl"))
+             if cfg.jsonl_metrics else None)
+    return os.path.join(cfg.output_dir,
+                        name.format("results") + ".txt"), jsonl
+
+
 def main(cfg: TrainConfig) -> dict:
     """Train as the flags say: in this process, in a spawned group of
     --data-parallel N local processes (returning rank 0's result), or as
     one rank of torchrun's group under --multihost."""
     device = resolve_device(cfg.device)
+    if cfg.spatial_parallel > 1:
+        return _spatial_main(cfg, device)
     if cfg.multihost:
         distributed.initialize(device=device)  # raises: no silent fallback
         try:
@@ -169,6 +190,30 @@ def main(cfg: TrainConfig) -> dict:
             _generate_pk_maps(cfg, device)
         return distributed.spawn_group(_train, world, device, cfg, True)
     return _train(cfg, group=None)
+
+
+def _spatial_main(cfg: TrainConfig, device) -> dict:
+    """--spatial-parallel N: the JAX trainer's rules (single process
+    group on this host, n_data = --data-parallel if > 1 else the GPUs
+    over N, an explicit batch), then n_data x N spawned ranks."""
+    if cfg.multihost:
+        raise SystemExit("error: --spatial-parallel is single-process "
+                         "only (use --data-parallel across hosts)")
+    if cfg.batch_size == 0:
+        # The probe measures the single-device step; H-sharding divides
+        # the activations by n_space, which the linear-in-batch model
+        # cannot see.
+        raise SystemExit("error: --batch-size auto does not model "
+                         "--spatial-parallel; set --batch-size "
+                         "explicitly")
+    n_data, n_space = mesh_lib.mesh_2d_shape(
+        cfg.spatial_parallel, cfg.data_parallel, device)
+    print(f"2-D mesh: {n_data} data x {n_space} spatial shards (image "
+          "rows shard over 'space'; hand-written halo exchanges)")
+    if cfg.generate_pk_maps:
+        _generate_pk_maps(cfg, device)
+    return distributed.spawn_group(_train, n_data * n_space, device, cfg,
+                                   True, n_space=n_space)
 
 
 # How long the other ranks of a --multihost group wait for rank 0 to fit
@@ -190,26 +235,25 @@ def _train(cfg: TrainConfig, maps_done: bool = False,
     `maps_done` when the PK maps were fitted before the group started."""
     device = group.device if group is not None else resolve_device(
         cfg.device)
-    host_index, num_hosts = ((group.rank, group.world) if group is not None
-                             else (0, 1))
-    is_main = host_index == 0
+    # the batch shards over the data index (the ranks of a space group
+    # load the same records and keep their rows of them)
+    host_index, num_hosts = ((group.data_index, group.n_data)
+                             if group is not None else (0, 1))
+    is_main = group is None or group.is_main
     set_precision_policy()
     print(f"PyTorch {torch.__version__} | device: "
           + (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-          + (f" | rank {host_index} of {num_hosts} "
+          + (f" | rank {group.rank} of {group.world} "
              f"({torch.distributed.get_backend()})" if group is not None
-             else ""))
+             else "")
+          + (f" | data {host_index} of {num_hosts}, space "
+             f"{group.space_index} of {group.n_space}"
+             if group is not None and group.n_space > 1 else ""))
     num_classes = cfg.model.total_classes  # +1 background (ref:train.py:144)
     tag_suffix = cfg.tag_suffix
 
-    results_file: Optional[str] = None
-    if not cfg.silent and is_main:  # one writer
-        os.makedirs(cfg.output_dir, exist_ok=True)
-        stamp = datetime.datetime.now().strftime("%m%d-%H%M")
-        results_file = os.path.join(
-            cfg.output_dir,
-            f"{cfg.model.model}_results_{stamp}{tag_suffix}.txt")
+    results_file, jsonl = _writers(cfg, is_main)
 
     if cfg.generate_pk_maps and not maps_done:
         if is_main:
@@ -251,7 +295,9 @@ def _train(cfg: TrainConfig, maps_done: bool = False,
     if group is not None:
         batch_size = mesh_lib.pad_batch_to_multiple(batch_size, num_hosts)
         print(f"data parallelism: global batch {batch_size} = {num_hosts} "
-              f"ranks x {batch_size // num_hosts}")
+              f"data shards x {batch_size // num_hosts}"
+              + (f", rows over {group.n_space} space ranks"
+                 if group.n_space > 1 else ""))
     local_batch = max(1, batch_size // num_hosts)
 
     train_pack = _open_pack(cfg, "train", required=True)
@@ -342,7 +388,8 @@ def _train(cfg: TrainConfig, maps_done: bool = False,
     cfg_json = config_lib.config_to_json(cfg)
     epochs_run = []
     start_time = time.time()
-    guard = PreemptionGuard(num_hosts, cfg.stop_after_steps, group=group)
+    guard = PreemptionGuard(group.world if group is not None else 1,
+                            cfg.stop_after_steps, group=group)
     preempted = False
     try:
         for epoch in range(start_epoch,
@@ -370,11 +417,16 @@ def _train(cfg: TrainConfig, maps_done: bool = False,
                     state.model,
                     cached_val if cached_val is not None else val_batches(),
                     num_classes, data_cfg=cfg.data, device=device,
-                    reduce_across_processes=num_hosts > 1)
+                    reduce_across_processes=group is not None, group=group)
             dice = metrics["dice"]
             _print_metrics(metrics)
             epochs_run.append({"epoch": epoch, "train_loss": mean_loss,
                                "lr": lr, "dice": dice})
+            if jsonl is not None:
+                jsonl.log({"epoch": epoch, "train_loss": mean_loss, "lr": lr,
+                           "dice": dice,
+                           "global_acc": metrics["global_accuracy"],
+                           **metrics["mean_metrics"]})
             if results_file:
                 # ref:train.py:288-301 format
                 with open(results_file, "a") as f:
@@ -423,9 +475,12 @@ def _train(cfg: TrainConfig, maps_done: bool = False,
                   f"{resume_kind}")
         return {"preempted": True, "best_dice": best_dice,
                 "epochs": epochs_run, "steps": state.step,
-                "batch_size": batch_size, "results_file": results_file}
+                "batch_size": batch_size, "results_file": results_file,
+                "metrics_file": jsonl and jsonl.path}
     total_time = time.time() - start_time
     print(f"Training time {datetime.timedelta(seconds=int(total_time))}")
+    # every rank's peak device memory (MB; None on the CPU), on rank 0
+    peak_mb = mesh_lib.gather_objects(group, device_peak_memory_mb())
     if not is_main:  # rank 0 alone runs the test pass and its renders
         return {"best_dice": best_dice, "epochs": epochs_run,
                 "steps": state.step, "batch_size": batch_size}
@@ -468,7 +523,8 @@ def _train(cfg: TrainConfig, maps_done: bool = False,
     return {"best_dice": best_dice, "epochs": epochs_run,
             "steps": state.step, "test": test_metrics,
             "batch_size": batch_size, "results_file": results_file,
-            "test_renders": idx}
+            "metrics_file": jsonl and jsonl.path, "test_renders": idx,
+            "peak_memory_mb_by_rank": peak_mb}
 
 
 def run(argv: Optional[Sequence[str]] = None) -> dict:

@@ -170,9 +170,17 @@ class TrainConfig:
     # (one on the CPU), 1 = one process; N > 1 spawns N local processes
     # (cli/train.py). More than the visible GPUs raises.
     data_parallel: int = 0
+    # Spatial parallelism: shard image rows over this many ranks of a 2-D
+    # (data x space) group, with hand-written halo exchanges
+    # (parallel/spatial.py); for crops too large for one card's
+    # activations. Single process group on one host only. 1 = off.
+    spatial_parallel: int = 1
     # Join the process group that torchrun describes in the environment
     # (core/distributed.py), one process per device.
     multihost: bool = False
+    # One JSON record per epoch in <output_dir>/<model>_metrics_<stamp>
+    # <tag>.jsonl beside the results .txt (utils/profiling.JsonlLogger).
+    jsonl_metrics: bool = True
     # Where the run computes: CUDA unless the CPU is asked for.
     device: str = "cuda"
 
@@ -221,10 +229,8 @@ def resolve_device(device="cuda") -> torch.device:
 # Flags of the JAX package's trainer whose features the port has not
 # implemented yet -> the ROADMAP.md item (§1) that brings them.
 UNPORTED_FLAGS = {
-    "--spatial-parallel": "spatial parallelism",
     "--profile-dir": "long tail",
     "--nan-check": "long tail",
-    "--jsonl-metrics": "long tail",
     "--matmul-precision": "long tail",
     "--tf32": "long tail",
     "--aux": "long tail",

@@ -123,30 +123,33 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn_group(fn: Callable, world: int, device, *args):
+def spawn_group(fn: Callable, world: int, device, *args,
+                n_space: int = 1):
     """Run fn(*args, group=<this rank's core/mesh.DataGroup>) in `world`
     spawned local processes joined by a process group on a free
     localhost port, rank r on cuda:r (or the CPU, gloo); returns rank 0's
-    result. A rank that raises takes the others down (SIGTERM, then
-    SIGKILL) and the error is raised here. `fn` must be importable (a
-    module-level function) for the spawn start method."""
+    result. With n_space > 1 the group is the (world / n_space) x
+    n_space mesh of core/mesh.create_2d_mesh. A rank that raises takes
+    the others down (SIGTERM, then SIGKILL) and the error is raised
+    here. `fn` must be importable (a module-level function) for the
+    spawn start method."""
     import torch.multiprocessing as mp
 
     port = free_port()
-    print(f"data parallelism: spawning {world} processes "
-          f"(coordinator localhost:{port})", flush=True)
+    print(f"{'spatial' if n_space > 1 else 'data'} parallelism: spawning "
+          f"{world} processes (coordinator localhost:{port})", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "result.pkl")
         mp.start_processes(_spawned_rank,
                            args=(fn, world, port, str(torch.device(device)),
-                                 out, args),
+                                 out, args, n_space),
                            nprocs=world, start_method="spawn")
         with open(out, "rb") as f:
             return pickle.load(f)
 
 
 def _spawned_rank(rank: int, fn: Callable, world: int, port: int,
-                  device: str, out: str, args) -> None:
+                  device: str, out: str, args, n_space: int = 1) -> None:
     """One spawned rank: its device (cuda:rank, or the CPU with one
     thread, as the ranks share the host), the group, fn; rank 0 pickles
     fn's result to `out`. The group is left on the way out, error or
@@ -160,7 +163,9 @@ def _spawned_rank(rank: int, fn: Callable, world: int, port: int,
         torch.set_num_threads(1)
     initialize(f"localhost:{port}", world, rank, device=dev)
     try:
-        result = fn(*args, group=mesh_lib.create_mesh(world, dev))
+        group = (mesh_lib.create_2d_mesh(world // n_space, n_space, dev)
+                 if n_space > 1 else mesh_lib.create_mesh(world, dev))
+        result = fn(*args, group=group)
     finally:
         shutdown()
     if rank == 0:

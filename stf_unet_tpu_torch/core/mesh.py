@@ -28,7 +28,7 @@ import contextlib
 import copy
 import datetime
 from dataclasses import dataclass
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -36,6 +36,8 @@ import torch.distributed as dist
 from stf_unet_tpu_torch.core.config import resolve_device
 
 DATA_AXIS = "data"
+# The second axis of a 2-D group (parallel/spatial.py): image rows.
+SPACE_AXIS = "space"
 
 
 @dataclass(frozen=True)
@@ -44,16 +46,40 @@ class DataGroup:
     this one `rank`, computing on `device`. `host_group` carries the
     host-side flags, objects and barriers: a gloo group beside an NCCL
     one (so agreeing on a stop never waits for the device), None where
-    the default group is gloo already."""
+    the default group is gloo already.
+
+    A 2-D (data x space) group (`create_2d_mesh`) has n_space > 1: rank
+    r is data index r // n_space, space index r % n_space; `space_group`
+    is the process group of this rank's data index (the ranks that hold
+    row shards of the same images: halos, row sums) and `data_group` the
+    one of its space index. The world still spans every rank: DDP, the
+    synced BN and the loss normalizer reduce over all of them."""
 
     world: int
     rank: int
     device: torch.device
     host_group: Any = None
+    n_space: int = 1
+    space_group: Any = None
+    data_group: Any = None
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    @property
+    def n_data(self) -> int:
+        return self.world // self.n_space
+
+    @property
+    def data_index(self) -> int:
+        """The batch shard this rank holds (its loader and draw shard)."""
+        return self.rank // self.n_space
+
+    @property
+    def space_index(self) -> int:
+        """The row shard this rank holds of its data shard's images."""
+        return self.rank % self.n_space
 
 
 def data_world(n_data: int = 0, device="cuda") -> int:
@@ -98,6 +124,51 @@ def create_mesh(n_data: int = 0, device="cuda") -> DataGroup:
     if dist.get_backend() != "gloo":
         host = dist.new_group(backend="gloo")
     return DataGroup(world, rank, dev, host)
+
+
+def mesh_2d_shape(n_space: int, data_parallel: int = 0,
+                  device="cuda") -> Tuple[int, int]:
+    """(n_data, n_space) of `--spatial-parallel n_space [--data-parallel
+    data_parallel]`, the JAX trainer's rule: n_data = data_parallel when
+    > 1, else every visible GPU over n_space (at least 1; one on the
+    CPU, where gloo ranks share the host). On CUDA the mesh must fit the
+    visible GPUs (create_2d_mesh's error), never shrinking quietly."""
+    dev = torch.device(device)
+    count = torch.cuda.device_count() if dev.type == "cuda" else 0
+    n_data = (data_parallel if data_parallel > 1
+              else max(count // n_space, 1))
+    need = n_data * n_space
+    if dev.type == "cuda" and need > count:
+        raise ValueError(f"mesh {n_data}x{n_space} needs {need} devices, "
+                         f"have {count}")
+    return n_data, n_space
+
+
+def create_2d_mesh(n_data: int, n_space: int, device="cuda") -> DataGroup:
+    """This process's place in a (data x space) group of the process
+    group it joined, whose world must be n_data * n_space: rank r is
+    (data r // n_space, space r % n_space). Every rank creates every
+    subgroup, in the same order (torch.distributed.new_group's rule).
+    Outside a process group only the 1 x 1 mesh exists."""
+    need = n_data * n_space
+    if not dist.is_initialized():
+        if need > 1:
+            raise ValueError(
+                f"mesh {n_data}x{n_space} needs {need} processes: join a "
+                "process group first (core/distributed.initialize, or "
+                "cli/train --spatial-parallel)")
+        return DataGroup(1, 0, torch.device(device))
+    base = create_mesh(0, device)
+    if base.world != need:
+        raise ValueError(f"mesh {n_data}x{n_space} needs {need} devices, "
+                         f"have {base.world} processes")
+    space = [dist.new_group(list(range(d * n_space, (d + 1) * n_space)))
+             for d in range(n_data)]
+    data = [dist.new_group(list(range(s, need, n_space)))
+            for s in range(n_space)]
+    return DataGroup(base.world, base.rank, base.device, base.host_group,
+                     n_space, space[base.rank // n_space],
+                     data[base.rank % n_space])
 
 
 def inference_devices(n_data: int = 0, device="cuda") -> List[torch.device]:
@@ -161,14 +232,15 @@ def _map(fn, tree):
 
 
 def shard_batch(group: DataGroup, tree):
-    """This rank's rows [rank * b, (rank + 1) * b) of every array (numpy or
-    tensor) in a global batch whose leading size B = world * b."""
+    """This rank's rows [d * b, (d + 1) * b) of every array (numpy or
+    tensor) in a global batch whose leading size B = n_data * b, d its
+    data index (its rank in a 1-D group)."""
     def rows(x):
-        b, rem = divmod(x.shape[0], group.world)
+        b, rem = divmod(x.shape[0], group.n_data)
         if rem:
             raise ValueError(f"global batch {x.shape[0]} does not divide "
-                             f"over {group.world} ranks")
-        return x[group.rank * b:(group.rank + 1) * b]
+                             f"over {group.n_data} ranks")
+        return x[group.data_index * b:(group.data_index + 1) * b]
 
     return _map(rows, tree)
 

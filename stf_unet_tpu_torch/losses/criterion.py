@@ -6,7 +6,14 @@ Under data parallelism the JAX loss is the global batch's: CE divides by
 the global valid (or weighted) pixel count. DistributedDataParallel
 averages the ranks' gradients, so a rank's CE here is its pixel sum over
 the global count times the world size: the mean over ranks is then the
-global CE. Dice is a per-image mean, which equal local batches keep."""
+global CE. Dice is a per-image mean, which equal local batches keep.
+
+Under spatial parallelism (a 2-D group of n_data x n_space ranks, each
+holding rows of its data shard's images) the same CE holds over the
+whole world, and each image's dice sums are summed over the space group
+before the ratio (losses/dice.py): every rank of a space group then
+holds its data shard's whole dice, n_space copies of which the world
+average of DDP weighs as one data shard's share."""
 
 from __future__ import annotations
 
@@ -58,7 +65,7 @@ def criterion(outputs: Dict[str, torch.Tensor], target: torch.Tensor,
         if dice:
             dice_target = build_target(target, num_classes, ignore_index)
             loss = loss + dice_loss(logits, dice_target, multiclass=True,
-                                    ignore_index=ignore_index)
+                                    ignore_index=ignore_index, group=group)
         losses[name] = loss
     if len(losses) == 1:
         return losses["out"]

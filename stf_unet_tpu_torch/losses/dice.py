@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from stf_unet_tpu_torch.parallel.spatial import space_sum
+
 
 def build_target(target: torch.Tensor, num_classes: int = 2,
                  ignore_index: int = -100) -> torch.Tensor:
@@ -30,9 +32,13 @@ def build_target(target: torch.Tensor, num_classes: int = 2,
 
 def dice_coeff(x: torch.Tensor, target: torch.Tensor,
                ignore_index: int = -100,
-               epsilon: float = 1e-6) -> torch.Tensor:
+               epsilon: float = 1e-6, group=None) -> torch.Tensor:
     """Per-image dice of one class channel averaged over the batch; x,
-    target [B, H, W]. An empty image (sets_sum == 0) scores 2*inter."""
+    target [B, H, W]. An empty image (sets_sum == 0) scores 2*inter.
+    Under spatial parallelism (`group` a 2-D core/mesh.DataGroup, x and
+    target this rank's rows) each image's intersection and sums are
+    summed over the space group first, so every rank of it holds the
+    whole images' dice."""
     x = x.reshape(x.shape[0], -1)
     target = target.reshape(target.shape[0], -1)
     if ignore_index >= 0:
@@ -41,26 +47,29 @@ def dice_coeff(x: torch.Tensor, target: torch.Tensor,
         target = torch.where(ignore, torch.zeros_like(target), target)
     inter = torch.sum(x * target, dim=1)
     sets_sum = torch.sum(x, dim=1) + torch.sum(target, dim=1)
+    if group is not None and group.n_space > 1:
+        inter, sets_sum = space_sum(torch.stack([inter, sets_sum]), group)
     sets_sum = torch.where(sets_sum == 0, 2 * inter, sets_sum)
     return torch.mean((2 * inter + epsilon) / (sets_sum + epsilon))
 
 
 def multiclass_dice_coeff(x: torch.Tensor, target: torch.Tensor,
                           ignore_index: int = -100,
-                          epsilon: float = 1e-6) -> torch.Tensor:
+                          epsilon: float = 1e-6, group=None) -> torch.Tensor:
     """Mean dice over the class channels of [B, H, W, C] tensors."""
     num_classes = x.shape[-1]
     total = 0.0
     for c in range(num_classes):
         total = total + dice_coeff(x[..., c], target[..., c], ignore_index,
-                                   epsilon)
+                                   epsilon, group)
     return total / num_classes
 
 
 def dice_loss(logits: torch.Tensor, dice_target: torch.Tensor,
               multiclass: bool = True,
-              ignore_index: int = -100) -> torch.Tensor:
-    """1 - dice(softmax(logits))."""
+              ignore_index: int = -100, group=None) -> torch.Tensor:
+    """1 - dice(softmax(logits)); `group` as dice_coeff's."""
     probs = torch.softmax(logits, dim=-1)
     fn = multiclass_dice_coeff if multiclass else dice_coeff
-    return 1.0 - fn(probs, dice_target, ignore_index=ignore_index)
+    return 1.0 - fn(probs, dice_target, ignore_index=ignore_index,
+                    group=group)

@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 
 from stf_unet_tpu_torch.models.blocks import TorchBatchNorm
-from stf_unet_tpu_torch.ops.conv import Conv2d
+from stf_unet_tpu_torch.ops.conv import Conv2d, MaxPool2d
 
 
 class BasicBlock(nn.Module):
@@ -49,7 +49,7 @@ class ResNet34Encoder(nn.Module):
         self.conv1 = Conv2d(in_channels, 64, 7, stride=2, padding=3,
                             bias=False)
         self.bn1 = TorchBatchNorm(64)
-        self.maxpool = nn.MaxPool2d(kernel_size=3, stride=2, padding=1)
+        self.maxpool = MaxPool2d(kernel_size=3, stride=2, padding=1)
         prev = 64
         for stage, (blocks, width) in enumerate(zip(stage_sizes, widths)):
             layer = []

@@ -5,8 +5,8 @@ Takes the T temporal frames (and, with PK maps, the maps after them) as
 stacked channels (input_format="flat_channels": [B, H, W, T*C]); encoder
 widths base_c * (1, 2, 4, 8), a base_c * 16 bottleneck, ConvTranspose
 k2 s2 upsampling, skip concatenations and a 1x1 head. The max pools are
-`F.max_pool2d(x, 2)`, which floors the output size as the JAX package's
-`max_pool_torch` does.
+`ops/conv.max_pool2d(x, 2)` (F.max_pool2d), which floors the output
+size as the JAX package's `max_pool_torch` does.
 
 Dtype policy, as STFLSTMUNet's: parameters stay float32; `dtype` is the
 compute dtype that activations and (cast-on-use) weights run in. The
@@ -19,11 +19,11 @@ from typing import Dict
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from stf_unet_tpu_torch.models.blocks import (DoubleConv,
                                               batch_running_var_updates)
-from stf_unet_tpu_torch.ops.conv import Conv2d, ConvTranspose2d
+from stf_unet_tpu_torch.ops.conv import (Conv2d, ConvTranspose2d,
+                                          max_pool2d)
 
 
 class UNet(nn.Module):
@@ -53,10 +53,10 @@ class UNet(nn.Module):
         num_classes]}."""
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         e1 = self.enc1(x)
-        e2 = self.enc2(F.max_pool2d(e1, 2))
-        e3 = self.enc3(F.max_pool2d(e2, 2))
-        e4 = self.enc4(F.max_pool2d(e3, 2))
-        d = self.bottleneck(F.max_pool2d(e4, 2))
+        e2 = self.enc2(max_pool2d(e1, 2))
+        e3 = self.enc3(max_pool2d(e2, 2))
+        e4 = self.enc4(max_pool2d(e3, 2))
+        d = self.bottleneck(max_pool2d(e4, 2))
         for i, skip in ((4, e4), (3, e3), (2, e2), (1, e1)):
             d = getattr(self, f"up{i}")(d)
             d = getattr(self, f"dec{i}")(torch.cat([d, skip], dim=1))

@@ -17,12 +17,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from stf_unet_tpu_torch.ops.conv import row_handler
+
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_h: int,
                                   out_w: int) -> torch.Tensor:
     """Bilinear resize of NCHW `x` with align_corners=True semantics (the
     JAX package applies `_align_corners_weights` as two matmuls; this is
-    the same interpolation)."""
+    the same interpolation). Under a row-sharding plan (ops/conv.rows)
+    x holds this rank's rows and (out_h, out_w) is the target level's
+    local shape."""
+    plan = row_handler()
+    if plan is not None:
+        return plan.resize(x, out_h, out_w)
     return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
                          align_corners=True)
 

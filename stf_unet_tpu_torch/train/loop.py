@@ -14,7 +14,10 @@ for the card every step.
 Under data parallelism (state.group) each rank runs this step on its
 rows of the global batch through the DDP wrapper (the non-final
 micro-steps of an accumulation window under no_sync), and the loss it
-returns is the global mean, all-reduced on the device.
+returns is the global mean, all-reduced on the device. Under spatial
+parallelism (a 2-D group) the ranks of a space group augment the same
+data shard's whole images (K2), each keeps its block of the image rows,
+and the forward runs row-sharded (parallel/spatial.row_sharded).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from stf_unet_tpu_torch.metrics.dice import (eval_dice_update,
                                              eval_dice_value)
 from stf_unet_tpu_torch.metrics.meters import MetricLogger, SmoothedValue
 from stf_unet_tpu_torch.models.registry import preprocess_input
+from stf_unet_tpu_torch.parallel import spatial
 from stf_unet_tpu_torch.train.state import TrainState
 
 
@@ -145,7 +149,12 @@ def train_step(state: TrainState, augment: TrainAugment,
     # the window's last micro-step all-reduces the summed gradients
     local = (state.ddp.no_sync() if state.ddp is not None
              and (state.step + 1) % k else contextlib.nullcontext())
-    with local:
+    rows = contextlib.nullcontext()
+    if state.group is not None and state.group.n_space > 1:
+        rows = spatial.row_sharded(state.group, *images.shape[2:4])
+        images = spatial.cut_rows(state.group, images, 2)
+        targets = spatial.cut_rows(state.group, targets, 1)
+    with local, rows:
         loss = loss_and_grads(state.model, images, targets, num_classes,
                               loss_weight=loss_weight,
                               forward=state.ddp, group=state.group)
@@ -206,7 +215,8 @@ def train_one_epoch(state: TrainState, loader: HostLoader,
 def evaluate(model, eval_batches: Iterable, num_classes: int, *,
              data_cfg, device: torch.device, print_freq: int = 100,
              collect_outputs: bool = False,
-             reduce_across_processes: bool = False) -> Dict[str, Any]:
+             reduce_across_processes: bool = False,
+             group=None) -> Dict[str, Any]:
     """Validation/test pass (ref:train_and_eval.py:316-374) over
     (image [B, T, h, w, 1] uint8, target [B, h, w] uint8) batches, which
     are normalized on the device. Returns {dice, confusion_matrix,
@@ -221,8 +231,17 @@ def evaluate(model, eval_batches: Iterable, num_classes: int, *,
     num_hosts=)); the confusion matrix, dice sums and image count are
     summed over the ranks, and every rank returns the same global
     metrics. The outputs stay the rank's own (gather_eval_outputs brings
-    them to rank 0 in record order)."""
+    them to rank 0 in record order).
+
+    Spatial parallelism (`group` a 2-D core/mesh.DataGroup; the ranks of
+    a space group read the same batches): each rank runs the forward on
+    its block of the image rows (row-sharded) and the logits' rows are
+    gathered; a batch whose rows do not split over the space group runs
+    whole on every rank. The space group's first rank alone counts the
+    batch, so the sums cover each data shard once; its outputs are the
+    only ones collected."""
     model.eval()
+    space = group is not None and group.n_space > 1
     conf = confusion_init(num_classes, device)
     dice_cum = torch.zeros((num_classes,), dtype=torch.float32,
                            device=device)
@@ -234,7 +253,15 @@ def evaluate(model, eval_batches: Iterable, num_classes: int, *,
         image = torch.from_numpy(host_image).to(device, non_blocking=True)
         target = torch.from_numpy(host_target).to(device, non_blocking=True)
         x = normalize(image, data_cfg.mean, data_cfg.std)
-        logits = model(preprocess_input(x, model))["out"]
+        if space and spatial.splits(x.shape[2], group.n_space):
+            with spatial.row_sharded(group, *x.shape[2:4]):
+                logits = model(preprocess_input(
+                    spatial.cut_rows(group, x, 2), model))["out"]
+            logits = spatial.gather_rows(logits, group, dim=1)
+        else:
+            logits = model(preprocess_input(x, model))["out"]
+        if space and group.space_index:
+            continue
         target = target.long()
         conf = confusion_update(conf, target, torch.argmax(logits, dim=-1))
         dice_cum, count = eval_dice_update(dice_cum, count, logits, target,

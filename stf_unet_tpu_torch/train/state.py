@@ -25,7 +25,10 @@ batch's statistics and a DistributedDataParallel wrapper (`ddp`) runs the
 train-mode forward and all-reduces the gradients; `model` stays the
 inner module, so the state_dict, the EMA and the checkpoints keep the
 reference key layout (no `module.` prefix). Every rank holds the same
-parameters, optimizer state and EMA after each apply.
+parameters, optimizer state and EMA after each apply. A 2-D (data x
+space) group is the same: DDP and the synced BN span the whole world,
+each rank's loss is its share (losses/criterion.py), so DDP's world
+mean is one process's gradient.
 """
 
 from __future__ import annotations

@@ -44,6 +44,11 @@ FLAGS = ["--model", "unet", "--model-base-c", "4", "--device", "cpu",
 STOP = 3  # steps: inside epoch 1's accumulation window
 
 
+def TILED_ARGV(test_argv):
+    """cli.test's tiled pass (no --threshold-sweep: it refuses --tiled)."""
+    return [a for a in test_argv if a != "--threshold-sweep"] + ["--tiled"]
+
+
 class MergedLoader:
     """One process over the ranks' global batches: batch j is every
     rank's batch j of a host-sharded HostLoader, in rank order."""
@@ -131,7 +136,10 @@ def cli_runs(tmp_path_factory):
                   _cmd(root, "test", "test", test_argv + [
                       "--output-dir", os.path.join(root, "test_dp"), *dp]),
                   _cmd(root, "train", "multihost", _train_argv(
-                      root, "multihost", "--multihost"))],
+                      root, "multihost", "--multihost")),
+                  _cmd(root, "test", "tiled", TILED_ARGV(test_argv) + [
+                      "--output-dir", os.path.join(root, "tiled_dp"),
+                      *dp])],
                  {**env, **torchrun})
     return root, stopped, test_argv, outs[2]
 
@@ -209,6 +217,33 @@ def test_cli_test_two_ranks_match_one_process(cli_runs):
         assert got_p[pid]["dice"] == pytest.approx(w["dice"], abs=1e-6)
     assert sorted(os.listdir(os.path.join(root, "test_dp"))) == \
         sorted(os.listdir(os.path.join(root, "test_one")))
+
+
+def test_cli_test_tiled_two_ranks_match_one_process(cli_runs):
+    """cli.test --data-parallel 2 --tiled: each rank tiles its records,
+    the sums are reduced and rank 0 renders and aggregates every record
+    in record order, as one process does."""
+    root, _, test_argv, _ = cli_runs
+    want = cli_test.main(TILED_ARGV(test_argv) + [
+        "--output-dir", os.path.join(root, "tiled_one")])
+    got = _load(root, "tiled")
+    np.testing.assert_array_equal(got["confusion_matrix"],
+                                  want["confusion_matrix"])
+    assert got["dice"] == pytest.approx(want["dice"], abs=1e-6)
+    got_p = got["patient_report"]["patients"]
+    want_p = want["patient_report"]["patients"]
+    assert sorted(got_p) == sorted(want_p) and len(want_p) == 2
+    for pid, w in want_p.items():
+        assert got_p[pid]["slices"] == w["slices"]
+        assert got_p[pid]["dice"] == pytest.approx(w["dice"], abs=1e-6)
+    one = os.path.join(root, "tiled_one")
+    dp = os.path.join(root, "tiled_dp")
+    assert sorted(os.listdir(dp)) == sorted(os.listdir(one))
+    for name in os.listdir(one):  # the renders, byte for byte
+        if name.endswith(".png"):
+            with open(os.path.join(one, name), "rb") as a, \
+                    open(os.path.join(dp, name), "rb") as b:
+                assert a.read() == b.read(), name
 
 
 def test_multihost_joins_torchruns_group_at_world_one(cli_runs):
