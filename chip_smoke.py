@@ -184,6 +184,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
      logits against one process's (SP_LOGIT_REL, near-tie masks); (b)
      with 2+ GPUs, cli/train --spatial-parallel 2 under NCCL for one
      epoch (ms per step, each rank's peak memory), else a skip line.
+ 24. the trainer's diagnostics and the model tools: (a) one f32 step of
+     the full-width STF model (B=4) with and without --model-remat from
+     the same weights and batch, cuDNN deterministic: the loss within
+     1e-5 and every gradient within 1e-4 of the tensor's max (atomics
+     in two backwards), every BN buffer equal (the recompute updates none); bf16 B=16 steps with and without
+     remat: peak memory (remat lower) and ms per step; K1f, K1b and K2
+     launched; (b) cli/train --model-remat true --profile-dir
+     --matmul-precision high --aux for one epoch: finite losses, the
+     trace's K1f, K1b, K2 and K3 kernel events against the wrappers'
+     launch counters over the same window, and the host time of each
+     annotated region (train_step, data_wait, loss_read, eval,
+     checkpoint); (c) a NaN weight under --nan-check raises
+     FloatingPointError naming the module; (d) cli.val (--data-parallel
+     0) on phase 6's best checkpoint against
+     cli/test on the test split: IoU / Dice of cli/test's logits within
+     1e-3, the confusion matrices, the device time per batch, K1f and K3
+     launched; (e) cli.export --check at a symbolic batch on the card:
+     the artifact at batch 1, 3 and 8 within 1e-4 of max |logit| of the
+     kernel-path eager forward, launching no port kernel, and the ms of
+     both at batch 8; (f) cli.migrate --reverse then forward (phase 6's
+     checkpoint back bit for bit) and cli.average of its latest and best
+     served once by cli/serve (200).
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -197,6 +219,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4648,6 +4671,476 @@ def sp_compare(outs, solo: str) -> dict:
     return line
 
 
+# Phase 24: the trainer's diagnostics and the model tools. (a) one f32 step
+# (B = DIAG_F32_BATCH) of the full-width STF model with and without
+# --model-remat from the same weights and augmented batch, cuDNN
+# deterministic: the loss within DIAG_LOSS_RTOL and every gradient within
+# DIAG_GRAD_RTOL of the tensor's max |gradient| (the recompute runs the
+# same kernels on the same inputs, but the f32 step is not reproducible to
+# 1e-5 on the card: the bilinear head's and the max pool's backwards
+# accumulate with atomics, and the same no-remat step run twice differed by
+# 1.6e-5 to 2.0e-5 of a tensor's max on an H100; a faulty recompute is off
+# by orders of magnitude more), every BN buffer equal after the step (the recompute must not update
+# them a second time); then bf16 steps at TRAIN_BATCH with and
+# without remat: peak memory (remat must lower it) and ms per step by
+# events, with the host's ms per step split between dispatch and the
+# previous loss's .item() (cli/train's pattern, unprofiled). (b) cli/train
+# with the diagnostics flags for one epoch, its
+# torch.profiler trace's kernel events by port kernel against the
+# wrappers' launch counters over the same window. (c) a NaN weight under
+# --nan-check: FloatingPointError naming the module. (d) cli.val on phase
+# 6's best checkpoint, against cli/test on the
+# same split: val's IoU / Dice (per-sample foreground, thresholded logit
+# margin) against the same function of cli/test's logits within
+# VAL_DICE_TOL, and the confusion matrices. (e) cli.export --check at a
+# symbolic batch on the card: the artifact against the kernel-path eager
+# forward within EXPORT_REL_TOL of max |logit| (f32), launching no port
+# kernel. (f) cli.migrate --reverse then forward: phase 6's checkpoint back
+# bit for bit; cli.average of its latest and best served once by
+# cli/serve.
+DIAG_F32_BATCH = 4
+DIAG_LOSS_RTOL = 1e-5
+DIAG_GRAD_RTOL = 1e-4
+DIAG_TIMED = 5
+VAL_DICE_TOL = 1e-3
+EXPORT_REL_TOL = 1e-4
+EXPORT_TIMED_BATCH = 8
+# the trace's kernel symbols of each port kernel (csrc/*.cu, namespace stf)
+TRACE_SYMBOLS = {"lstm_last_x": ("stf::lstm_last_x_kernel",
+                                 "stf::lstm_last_x_tc_kernel"),
+                 "lstm_last_x_bwd": ("stf::lstm_bwd_tile_kernel",
+                                     "stf::lstm_bwd_tile_tc_kernel"),
+                 "warp": ("stf::warp_kernel",),
+                 "lstm_last": ("stf::lstm_last_kernel",
+                               "stf::lstm_last_tc_kernel")}
+
+
+def remat_phase(data: str, device: str = "cuda") -> dict:
+    """(a): returns the launch counts of its steps."""
+    import torch
+
+    from stf_unet_tpu_torch.core.prng import augment_generator
+    from stf_unet_tpu_torch.train.loop import loss_and_grads, train_step
+
+    dev = torch.device(device)
+    settings = (torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    kernels = reset_counts()
+    runs, batch = [], None
+    try:
+        for remat in (False, True):
+            state, augment, host = train_objects(data, torch.float32, device,
+                                                 DIAG_F32_BATCH)
+            state.model.remat = remat
+            if batch is None:  # one augmented batch for every model
+                batch = augment(augment_generator(0, 0, 0),
+                                torch.from_numpy(host.frames).to(dev),
+                                torch.from_numpy(host.masks).to(dev),
+                                host.sizes)
+            loss = loss_and_grads(state.model, *batch, 2)
+            runs.append((loss.item(),
+                         {n: p.grad.detach().clone()
+                          for n, p in state.model.named_parameters()},
+                         {n: b.detach().clone()
+                          for n, b in state.model.named_buffers()}))
+            del state
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = settings
+    launches = _launches(kernels)
+    (loss0, grads0, bufs0), (loss1, grads1, bufs1) = runs
+    errs = {n: float((grads1[n] - g).abs().max())
+            / max(float(g.abs().max()), 1e-30) for n, g in grads0.items()}
+    grad_worst = max(errs, key=errs.get)
+    grad_err = errs[grad_worst]
+    bufs_equal = all(torch.equal(bufs1[n], b) for n, b in bufs0.items())
+    print(json.dumps({"diagnostics_remat_f32": {
+        "loss": [loss0, loss1], "grad_max_rel_err": grad_err,
+        "worst": grad_worst, "bn_buffers_equal": bufs_equal}}),
+        flush=True)
+    check(abs(loss1 - loss0) <= DIAG_LOSS_RTOL * abs(loss0),
+          f"remat f32 loss {loss1} vs {loss0}")
+    check(grad_err <= DIAG_GRAD_RTOL,
+          f"remat f32 gradients differ by {grad_err:.3g} of {grad_worst}'s "
+          "max")
+    check(bufs_equal, "a BN buffer differs after a remat step (updated "
+                      "twice?)")
+    for name in ("lstm_last_x", "lstm_last_x_bwd", "warp"):
+        check(launches[name] > 0, f"kernel {name} never launched in the "
+                                  f"remat steps")
+
+    memory, step_ms, host_split = {}, {}, {}
+    for remat in (False, True, True, False):  # in turns
+        state, augment, host = train_objects(data, torch.bfloat16, device,
+                                             TRAIN_BATCH)
+        state.model.remat = remat
+
+        def step():
+            return train_step(state, augment, host,
+                              augment_generator(0, 0, 0), lambda s: 1e-3,
+                              2, dev)[0]
+
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(DIAG_TIMED):
+            loss = step()
+        end.record()
+        check(math.isfinite(loss.item()), "non-finite bf16 loss")
+        key = "remat" if remat else "no_remat"
+        if key not in host_split:
+            host_split[key] = _host_split(step)
+        step_ms.setdefault(key, []).append(start.elapsed_time(end)
+                                           / DIAG_TIMED)
+        memory[key] = {
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "peak_above_state_gb": (torch.cuda.max_memory_allocated(dev)
+                                    - base) / 2**30}
+        del state, step
+        torch.cuda.empty_cache()
+    check(memory["remat"]["peak_gb"] < memory["no_remat"]["peak_gb"],
+          f"remat did not lower the step's peak memory: {memory}")
+    print(json.dumps({"diagnostics_remat": {
+        "card": card_line(), "f32_batch": DIAG_F32_BATCH,
+        "f32_loss": [loss0, loss1], "f32_grad_max_rel_err": grad_err,
+        "bn_buffers_equal": bufs_equal, "bf16_batch": TRAIN_BATCH,
+        "memory": memory, "ms_per_step": step_ms,
+        "host_ms_per_step": host_split, "launches": launches}}), flush=True)
+    return launches
+
+
+def _host_split(step, steps: int = DIAG_TIMED) -> dict:
+    """Host ms per step of cli/train's pattern (the loss of step s read
+    while step s+1 runs), unprofiled: in train_step's dispatch and in the
+    .item() wait for the previous step's loss."""
+    pending, dispatch, wait = step(), 0.0, 0.0
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step()
+        t1 = time.perf_counter()
+        pending.item()
+        wait += time.perf_counter() - t1
+        dispatch += t1 - t0
+        pending = loss
+    pending.item()
+    return {"dispatch": dispatch * 1e3 / steps,
+            "item_wait": wait * 1e3 / steps}
+
+
+def _trace_summary(path: str) -> dict:
+    """Kernel events of the port's kernels and the summed host time of
+    each annotated region in a torch.profiler Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {name: 0 for name in TRACE_SYMBOLS}
+    regions, busy, span = {}, 0.0, [float("inf"), 0.0]
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, name = e.get("cat", ""), e.get("name", "")
+        if cat == "kernel":
+            busy += e.get("dur", 0.0)
+            span = [min(span[0], e["ts"]), max(span[1], e["ts"] + e["dur"])]
+            for port, symbols in TRACE_SYMBOLS.items():
+                if any(s in name for s in symbols):
+                    kernels[port] += 1
+        elif cat == "user_annotation":
+            r = regions.setdefault(name, [0, 0.0])
+            r[0] += 1
+            r[1] += e.get("dur", 0.0) / 1e3
+    return {"kernel_events": kernels, "kernel_busy_ms": busy / 1e3,
+            "kernel_span_ms": (span[1] - span[0]) / 1e3 if busy else 0.0,
+            "regions_ms": {k: {"count": v[0], "ms": v[1]}
+                           for k, v in sorted(regions.items())}}
+
+
+def train_flags_phase(tmpdir: str, data: str, device: str = "cuda"):
+    """(b) and (c): returns the launch counts of the cli/train run."""
+    import contextlib
+    import shutil
+
+    import torch
+
+    from stf_unet_tpu_torch.cli import train as train_cli
+
+    prof = os.path.join(tmpdir, "diag_trace")
+    window = {}
+    real_trace = train_cli.trace
+
+    @contextlib.contextmanager
+    def counted_trace(*args, **kwargs):
+        """cli/train's trace, with the launch counters read at the end of
+        the profiled window."""
+        before = _launches(counters())
+        with real_trace(*args, **kwargs) as path:
+            yield path
+            _sync(device)
+            window.update({k: v - before[k] for k, v in
+                           _launches(counters()).items()})
+
+    argv = ["--data-path", data, "--model", "stflstm", "--amp", "true",
+            "--use-subtraction", "--batch-size", str(TRAIN_BATCH),
+            "--eval-batch-size", str(TRAIN_BATCH), "--seed", "0",
+            "--data-base-size", str(TRAIN_SRC),
+            "--data-crop-size", str(TRAIN_CROP), "--print-freq", "1",
+            "--device", device]
+    kernels = reset_counts()
+    train_cli.trace = counted_trace
+    t0 = time.perf_counter()
+    try:
+        result = train_cli.run(argv + [
+            "--epochs", "1", "--model-remat", "true", "--profile-dir", prof,
+            "--matmul-precision", "high", "--aux",
+            "--save-dir", os.path.join(tmpdir, "weights_diag"),
+            "--output-dir", os.path.join(tmpdir, "out_diag")])
+    finally:
+        train_cli.trace = real_trace
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    wall = time.perf_counter() - t0
+    launches = _launches(kernels)
+    losses = [e["train_loss"] for e in result["epochs"]]
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss under "
+                                                 f"the diagnostics: {losses}")
+    trace_file = result["trace_file"]
+    check(trace_file is not None and os.path.isfile(trace_file),
+          f"no trace file: {trace_file}")
+    summary = _trace_summary(trace_file)
+    for name in ("lstm_last_x", "lstm_last_x_bwd", "warp"):
+        check(summary["kernel_events"][name] > 0,
+              f"the trace holds no {name} kernel event")
+    trace_vs_counter = {name: {"trace_events": summary["kernel_events"][name],
+                               "counter": window.get(name)}
+                        for name in TRACE_SYMBOLS}
+
+    # (c) a NaN weight under --nan-check, resumed from a copy of (b)'s run
+    nan_dir = os.path.join(tmpdir, "weights_nan")
+    os.makedirs(nan_dir)
+    src = os.path.join(tmpdir, "weights_diag", "stflstm_latest_model.pth")
+    ckpt = torch.load(src, map_location="cpu", weights_only=True)
+    ckpt["model"]["layer3.1.conv2.weight"][0, 0, 0, 0] = float("nan")
+    torch.save(ckpt, os.path.join(nan_dir, "stflstm_latest_model.pth"))
+    raised = None
+    try:
+        train_cli.run(argv + ["--epochs", "2", "--nan-check",
+                              "--resume", "latest", "--save-dir", nan_dir,
+                              "--output-dir", os.path.join(tmpdir,
+                                                           "out_nan")])
+    except FloatingPointError as e:
+        raised = str(e)
+    shutil.rmtree(nan_dir)
+    check(raised is not None and "module" in raised,
+          f"--nan-check did not raise FloatingPointError naming a module "
+          f"({raised!r})")
+    print(json.dumps({"diagnostics_train": {
+        "card": card_line(), "wall_s": wall, "losses": losses,
+        "trace_bytes": os.path.getsize(trace_file),
+        "trace_vs_counter": trace_vs_counter,
+        "trace_kernel_busy_ms": summary["kernel_busy_ms"],
+        "trace_kernel_span_ms": summary["kernel_span_ms"],
+        "regions_ms": summary["regions_ms"], "nan_check": raised,
+        "launches": launches}}), flush=True)
+    return launches
+
+
+def val_phase(tmpdir: str, data: str, weights: str, device: str = "cuda"):
+    """(d): returns the launch counts of cli.val."""
+    from stf_unet_tpu_torch.cli import test as cli_test
+    from stf_unet_tpu_torch.cli import val as cli_val
+    from stf_unet_tpu_torch.metrics.binary import iou_score
+
+    config = os.path.join(tmpdir, "val", "config.yml")
+    cwd = os.getcwd()
+    os.makedirs(os.path.dirname(config))
+    os.chdir(os.path.dirname(config))
+    try:
+        cli_val.load_or_create_config(config)  # writes the defaults
+        with open(config, "a") as f:
+            f.write("# the synthetic tree's subtraction frames\n")
+        text = open(config).read().replace(
+            "use_subtraction: false", "use_subtraction: true").replace(
+            "crop_size: 224", f"crop_size: {TRAIN_CROP}")
+        with open(config, "w") as f:
+            f.write(text)
+        kernels = reset_counts()
+        t0 = time.perf_counter()
+        got = cli_val.main(["--model-path", weights, "--root", data,
+                            "--config", config, "--split", "test",
+                            "--data-parallel", "0", "--dtype", "bf16",
+                            "--device", device])
+        wall = time.perf_counter() - t0
+        launches = _launches(kernels)
+    finally:
+        os.chdir(cwd)
+    masks = len(os.listdir(os.path.join(tmpdir, "val", "outputs",
+                                        "validation", "0")))
+    ref = cli_test.main(["--model", "stflstm", "--model-dir", weights,
+                         "--root", data, "--use-subtraction", "--dtype",
+                         "bf16", "--device", device, "--output-dir",
+                         os.path.join(tmpdir, "val_cli_test")])
+    scores = [iou_score(lg[..., 1] - lg[..., 0], tgt == 1)
+              for lg, (_, tgt) in zip(ref["outputs"], ref["batches"])]
+    ref_iou = float(np.mean([s[0] for s in scores]))
+    ref_dice = float(np.mean([s[1] for s in scores]))
+    conf_diff = int(np.abs(got["confusion_matrix"]
+                           - ref["confusion_matrix"]).sum() // 2)
+    pixels = int(ref["confusion_matrix"].sum())
+    check(abs(got["dice"] - ref_dice) <= VAL_DICE_TOL,
+          f"cli.val dice {got['dice']} vs cli/test's logits {ref_dice}")
+    check(abs(got["iou"] - ref_iou) <= VAL_DICE_TOL,
+          f"cli.val IoU {got['iou']} vs cli/test's logits {ref_iou}")
+    check(conf_diff <= VAL_DICE_TOL * pixels,
+          f"cli.val's confusion matrix differs from cli/test's in "
+          f"{conf_diff} of {pixels} pixels")
+    check(masks == len(scores), f"cli.val wrote {masks} masks for "
+                                f"{len(scores)} slices")
+    for name in ("lstm_last_x", "lstm_last"):
+        check(launches[name] > 0, f"kernel {name} never launched in cli.val")
+    print(json.dumps({"cli_val": {
+        "card": card_line(), "slices": len(scores), "iou": got["iou"],
+        "dice": got["dice"], "cli_test_logits_iou": ref_iou,
+        "cli_test_logits_dice": ref_dice, "cli_test_dice": ref["dice"],
+        "confusion_pixels_moved": conf_diff,
+        "device_ms_per_batch": got["device_time"] * 1e3,
+        "wall_s": wall, "launches": launches}}), flush=True)
+    return launches
+
+
+def export_phase(tmpdir: str, weights: str, device: str = "cuda"):
+    """(e): returns the launch counts of the kernel-path forward (the
+    artifact's must be none)."""
+    import torch
+
+    from stf_unet_tpu_torch.cli import export as cli_export
+    from stf_unet_tpu_torch.cli.common import restore_for_inference
+
+    out = os.path.join(tmpdir, "stflstm.pt2")
+    t0 = time.perf_counter()
+    cli_export.main(["--model", "stflstm", "--model-dir", weights,
+                     "--use-subtraction", "--crop-size", str(CROP),
+                     "--batch", "0", "--check", "--output", out,
+                     "--device", device])
+    export_s = time.perf_counter() - t0
+    sidecar = json.load(open(out + ".json"))
+    program = torch.export.load(out).module()
+    eager, _, _, _ = restore_for_inference(
+        "stflstm", os.path.join(weights, "stflstm_best_model.pth"),
+        use_subtraction=True, dtype="f32", device=device)
+    rng = np.random.default_rng(6)
+    errs, ms = {}, {}
+    for b in (1, 3, EXPORT_TIMED_BATCH):
+        x = torch.from_numpy(rng.normal(size=(b, T_STEPS, CROP, CROP, 1))
+                             .astype(np.float32)).to(device)
+        with torch.no_grad():
+            kernels = reset_counts()
+            got = program(x)
+            _sync(device)
+            artifact_launches = _launches(kernels)
+            kernels = reset_counts()
+            want = eager(x)["out"]
+            _sync(device)
+            eager_launches = _launches(kernels)
+            if b == EXPORT_TIMED_BATCH:
+                ms = {"artifact_plain_path": cuda_ms(lambda: program(x), 10),
+                      "eager_kernel_path": cuda_ms(lambda: eager(x), 10)}
+        errs[b] = float((got - want).abs().max() / want.abs().max())
+        check(tuple(got.shape) == (b, CROP, CROP, 2),
+              f"artifact output {tuple(got.shape)} at batch {b}")
+        check(errs[b] <= EXPORT_REL_TOL, f"artifact vs kernel-path eager at "
+                                         f"batch {b}: {errs[b]:.3g}")
+        check(not any(artifact_launches.values()),
+              f"the artifact launched port kernels: {artifact_launches}")
+        for name in ("lstm_last_x", "lstm_last"):
+            check(eager_launches[name] > 0, f"kernel {name} never launched "
+                                            f"by the eager forward")
+    print(json.dumps({"cli_export": {
+        "card": card_line(), "export_and_check_s": export_s,
+        "sidecar": sidecar, "max_rel_err_by_batch": errs,
+        "ms_b8": ms, "artifact_launches": artifact_launches,
+        "eager_launches_b8": eager_launches}}), flush=True)
+    return eager_launches
+
+
+def ckpt_tools_phase(tmpdir: str, weights: str, device: str = "cuda"):
+    """(f): returns the launch counts of the served request."""
+    import shutil
+
+    import torch
+
+    from stf_unet_tpu_torch.cli import average as cli_average
+    from stf_unet_tpu_torch.cli import migrate as cli_migrate
+    from stf_unet_tpu_torch.cli.serve import build_server, parse_args
+    from stf_unet_tpu_torch.serve.client import SegmentationClient
+
+    t0 = time.perf_counter()
+    ref = os.path.join(tmpdir, "reference.pth")
+    cli_migrate.main([ref, "--reverse", "--model", "stflstm",
+                      "--save-dir", weights])
+    back = os.path.join(tmpdir, "weights_migrated")
+    cli_migrate.main([ref, "--model", "stflstm", "--save-dir", back])
+    orig = torch.load(os.path.join(weights, "stflstm_best_model.pth"),
+                      weights_only=True)
+    again = torch.load(os.path.join(back, "stflstm_best_model.pth"),
+                       weights_only=True)
+    same = (orig["model"].keys() == again["model"].keys() and all(
+        torch.equal(again["model"][k], v) for k, v in orig["model"].items()))
+    check(same, "migrate --reverse then forward did not give phase 6's "
+                "weights back bit for bit")
+    check(again["epoch"] == orig["epoch"], "the epoch did not round-trip")
+    avg_dir = os.path.join(tmpdir, "weights_avg")
+    cli_average.main(["--model", "stflstm", "--save-dir", weights,
+                      "--kinds", "latest,best", "--out-dir", avg_dir])
+    server = build_server(parse_args(
+        ["--model", "stflstm", "--model-dir", avg_dir, "--use-subtraction",
+         "--port", "0", "--dtype", "bf16", "--no-warmup", "--device",
+         device]))
+    server.start()
+    try:
+        client = SegmentationClient("http://%s:%d" % server.address,
+                                    timeout=300)
+        kernels = reset_counts()
+        frames = np.random.default_rng(8).integers(
+            0, 256, (T_STEPS, CROP, CROP), dtype=np.uint8)
+        mask = client.segment(frames)  # raises unless the answer is 200
+        _sync(device)
+        launches = _launches(kernels)
+    finally:
+        server.stop()
+    check(mask.shape == (CROP, CROP), f"averaged model's mask {mask.shape}")
+    for name in ("lstm_last_x", "lstm_last"):
+        check(launches[name] > 0, f"kernel {name} never launched serving "
+                                  f"the average")
+    shutil.rmtree(back)
+    print(json.dumps({"ckpt_tools": {
+        "migrate_round_trip_bit_equal": same, "tensors": len(orig["model"]),
+        "average_served": 200, "wall_s": time.perf_counter() - t0,
+        "launches": launches}}), flush=True)
+    return launches
+
+
+def diagnostics_phase(tmpdir: str, data: str, weights: str) -> dict:
+    """Phase 24: (a) - (f) above. Returns the launch counts, summed."""
+    t0 = time.perf_counter()
+    total = {name: 0 for name in counters()}
+    for launches in (remat_phase(data), train_flags_phase(tmpdir, data),
+                     val_phase(tmpdir, data, weights),
+                     export_phase(tmpdir, weights),
+                     ckpt_tools_phase(tmpdir, weights)):
+        for name, n in launches.items():
+            total[name] += n
+    print(json.dumps({"diagnostics": {
+        "phase_wall_s": time.perf_counter() - t0, "launches": total}}),
+        flush=True)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4757,6 +5250,10 @@ def main() -> int:
         # process; cli/train over the GPUs where there are several
         torch.cuda.empty_cache()
         deploy["spatial_parallel"] = spatial_parallel_phase(tmpdir, data)
+        # the trainer's diagnostics and the model tools on phase 6's
+        # checkpoint
+        torch.cuda.empty_cache()
+        deploy["diagnostics"] = diagnostics_phase(tmpdir, data, stf_weights)
     for name in ("quant_patches", "quant_epilogue"):
         agg[name]["device_ms"] = int8_forwards["stflstm"]["int8_split_b8"][
             f"{name}_ms"]

@@ -12,6 +12,7 @@ trained. Both models restore: STF-LSTM-UNet and the vanilla UNet.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 from typing import Dict, Optional, Tuple
@@ -19,8 +20,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from stf_unet_tpu_torch.core.config import (DataConfig, ModelConfig,
-                                            resolve_device)
+from stf_unet_tpu_torch.core.config import (MATMUL_PRECISIONS, DataConfig,
+                                            ModelConfig, resolve_device)
 from stf_unet_tpu_torch.models.registry import create_model
 from stf_unet_tpu_torch.train.checkpoint import checkpoint_file
 
@@ -29,15 +30,19 @@ DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 def load_reference_checkpoint(path: str
                               ) -> Tuple[Dict[str, torch.Tensor], dict]:
-    """(state_dict, metadata) from a reference .pth; a DataParallel
+    """(state_dict, metadata) from a reference .pth ({"model": ...},
+    {"state_dict": ...} or a bare state_dict, read with weights_only; the
+    reference's saved `args` Namespace is allowed); a DataParallel
     'module.' prefix is stripped. A cli/train checkpoint that carries EMA
     weights gives them as the parameters (the BN statistics stay the live
     model's), as the JAX package's inference restore does, and says so."""
-    raw = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(raw, dict) and "model" in raw:
-        sd, meta = raw["model"], {k: v for k, v in raw.items()
-                                  if k not in ("model", "ema",
-                                               "accum_grads")}
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+    key = next((k for k in ("model", "state_dict")
+                if isinstance(raw, dict) and k in raw), None)
+    if key is not None:
+        sd, meta = raw[key], {k: v for k, v in raw.items()
+                              if k not in (key, "ema", "accum_grads")}
         if "ema" in raw:
             sd = {**sd, **raw["ema"]}
             print("using EMA weights (checkpoint carries an EMA copy)")
@@ -48,13 +53,23 @@ def load_reference_checkpoint(path: str
     return sd, meta
 
 
-def set_precision_policy() -> None:
+def set_precision_policy(matmul_precision: str = "default") -> bool:
     """float32 serving computes in full float32, as the JAX reference does
     on the CPU: TF32 off for cuBLAS matmuls and for cuDNN convolutions
-    (cuDNN's default is on). The flags touch only float32 products, so
-    bfloat16 serving runs the same under them."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    (cuDNN's default is on). cli/train's --matmul-precision picks the
+    policy by JAX's names (core/config.MATMUL_PRECISIONS): "default",
+    "highest" and "float32" are this one, "high" and "tensorfloat32"
+    turn TF32 on for both; another name raises ValueError. The flags touch
+    only float32 products of cuBLAS and cuDNN, so bfloat16 runs the same
+    under them, and the hand-written kernels never read them. Returns
+    whether TF32 is on."""
+    if matmul_precision not in MATMUL_PRECISIONS:
+        raise ValueError(f"matmul precision {matmul_precision!r}: expected "
+                         f"one of {sorted(MATMUL_PRECISIONS)}")
+    tf32 = MATMUL_PRECISIONS[matmul_precision]
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    return tf32
 
 
 # Data settings of the training run read where its config holds them.
@@ -67,19 +82,22 @@ def saved_data_settings(meta: dict) -> dict:
     where the config has them, from the config JSON cli/train stores in it
     (as the JAX package's cli/common reads its checkpoint's config). {}
     when the checkpoint has none (one from `stf_unet_tpu.cli.migrate
-    --reverse`); {} with a note when it cannot be read."""
+    --reverse`) or its config holds no "data" (cli/migrate's
+    {"migrated_from": ...}); {} with a note when it cannot be read."""
     raw = meta.get("config")
     if not raw:
         return {}
     try:
-        data = json.loads(raw)["data"]
+        data = json.loads(raw).get("data")
+        if data is None:  # a cli/migrate or cli/average provenance note
+            return {}
         settings = {"crop_size": int(data["crop_size"]),
                     "base_size": int(data["base_size"]),
                     "mean": float(data["mean"]), "std": float(data["std"])}
         settings.update({k: data[k] for k in _OPTIONAL_SETTINGS
                          if k in data})
         return settings
-    except (ValueError, KeyError, TypeError) as e:
+    except (ValueError, KeyError, TypeError, AttributeError) as e:
         print(f"note: unreadable checkpoint config ({e!r}); serving with "
               f"the default data settings")
         return {}

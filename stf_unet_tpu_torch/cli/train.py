@@ -9,7 +9,8 @@ ref:train.py:124-401).
         [--data-pack <pack root>] [--data-cache-ram] \\
         [--data-device-prefetch N] [--stop-after-steps N] \\
         [--data-elastic-alpha A --data-brightness B ...] \\
-        [--data-parallel N | --multihost] \\
+        [--data-parallel N | --multihost] [--model-remat true] \\
+        [--profile-dir DIR] [--nan-check] [--matmul-precision high|--tf32] \\
         [--device cuda|cpu] [--resume latest [--test-only]] ...
 
 Optional PK map fitting (--generate-pk-maps, pk/maps.py) -> dataset
@@ -24,6 +25,16 @@ prediction render per test slice to <output_dir>/test_results<_pk>.
 SIGTERM, a first SIGINT or --stop-after-steps end the run at the next
 step with a resumable checkpoint (train/preempt.py). CUDA unless
 --device cpu.
+
+Diagnostics, as the JAX trainer has them: --model-remat recomputes the
+STF model's encoder in the backward (models/stf_lstm_unet.py);
+--profile-dir traces the first epoch with torch.profiler into
+<dir>/trace_rank<r>.json (utils/profiling.trace); --nan-check raises
+FloatingPointError at the first NaN of a module's output, the loss or
+the backward (utils/profiling.NanCheck); --matmul-precision (or --tf32)
+sets TF32 for cuBLAS and cuDNN float32 products (cli/common.
+set_precision_policy); --aux and --compile-cache-dir are accepted with a
+note.
 
 Devices: one process on one device, unless data parallelism is asked
 for. `--data-parallel N > 1` spawns N local processes joined by a
@@ -46,6 +57,7 @@ rank that raises takes the others down with a non-zero exit.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -78,7 +90,8 @@ from stf_unet_tpu_torch.train.preempt import PreemptionGuard
 from stf_unet_tpu_torch.train.schedule import warmup_poly_schedule
 from stf_unet_tpu_torch.train.state import (TrainState, data_parallel,
                                             ema_copy, make_optimizer)
-from stf_unet_tpu_torch.utils.profiling import JsonlLogger
+from stf_unet_tpu_torch.utils.profiling import (JsonlLogger, NanCheck,
+                                                annotate, trace)
 from stf_unet_tpu_torch.viz.comparison import save_comparison
 
 
@@ -240,7 +253,17 @@ def _train(cfg: TrainConfig, maps_done: bool = False,
     host_index, num_hosts = ((group.data_index, group.n_data)
                              if group is not None else (0, 1))
     is_main = group is None or group.is_main
-    set_precision_policy()
+    if set_precision_policy(cfg.matmul_precision):
+        print(f"matmul precision: {cfg.matmul_precision} (TF32 on for "
+              "cuBLAS and cuDNN float32 products; the port's kernels keep "
+              "their own arithmetic)")
+    if cfg.aux:
+        print("note: --aux accepted for reference parity; these models "
+              "define no auxiliary head (ref models never return one either)")
+    if cfg.compile_cache_dir != "auto":
+        print("note: --compile-cache-dir is accepted and unused: the port "
+              "compiles no XLA; its kernels' nvcc builds persist in "
+              "build/kernels")
     print(f"PyTorch {torch.__version__} | device: "
           + (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
@@ -336,6 +359,13 @@ def _train(cfg: TrainConfig, maps_done: bool = False,
                        grad_accum=k, ema=ema_copy(model) if use_ema else None,
                        ema_decay=cfg.optim.ema_decay,
                        ema_warmup=cfg.optim.ema_warmup, group=group, ddp=ddp)
+    if cfg.model.remat and cfg.model.model == "stflstm":
+        print("remat: the encoder's activations are recomputed in the "
+              "backward")
+    if cfg.nan_check:
+        state.nan_check = NanCheck(model)
+        print("NaN sanitizer enabled (forward hooks on every module, "
+              "autograd anomaly mode in the backward)")
     if use_ema:
         print(f"EMA weights: decay {cfg.optim.ema_decay}"
               f"{' (warmup ramp)' if cfg.optim.ema_warmup else ''} "
@@ -391,9 +421,15 @@ def _train(cfg: TrainConfig, maps_done: bool = False,
     guard = PreemptionGuard(group.world if group is not None else 1,
                             cfg.stop_after_steps, group=group)
     preempted = False
+    # --profile-dir: the first epoch's steps, evaluation and saves
+    trace_file, profiling = None, contextlib.ExitStack()
     try:
         for epoch in range(start_epoch,
                            start_epoch if cfg.test_only else cfg.epochs):
+            profiling.close()  # the trace ends with the first epoch
+            if cfg.profile_dir and epoch == start_epoch:
+                trace_file = profiling.enter_context(trace(
+                    cfg.profile_dir, group.rank if group is not None else 0))
             start_step = (resume_step or 0) if epoch == start_epoch else 0
             mean_loss, lr, steps_done = train_one_epoch(
                 state, loader, augment, cfg.seed, epoch, schedule,
@@ -404,15 +440,17 @@ def _train(cfg: TrainConfig, maps_done: bool = False,
             if guard.triggered:
                 # stopped mid-epoch: no evaluation, a step-exact "latest"
                 partial = steps_done < len(loader)
-                ckpt.save("latest", state, epoch=epoch, best_dice=best_dice,
-                          config_json=cfg_json, seed=cfg.seed,
-                          step_in_epoch=steps_done if partial else None)
+                with annotate("checkpoint"):
+                    ckpt.save("latest", state, epoch=epoch,
+                              best_dice=best_dice, config_json=cfg_json,
+                              seed=cfg.seed,
+                              step_in_epoch=steps_done if partial else None)
                 epochs_run.append({"epoch": epoch, "train_loss": mean_loss,
                                    "lr": lr, "steps": steps_done,
                                    "partial": partial})
                 preempted, resume_kind = True, "latest"
                 break
-            with state.ema_weights():
+            with state.ema_weights(), annotate("eval"):
                 metrics = evaluate(
                     state.model,
                     cached_val if cached_val is not None else val_batches(),
@@ -442,20 +480,23 @@ def _train(cfg: TrainConfig, maps_done: bool = False,
                             f"mean_recall: "
                             f"{metrics['mean_metrics']['mrecall']:.4f}\n"
                             f"{metrics['confusion_str']}\n\n")
-            if cfg.save_best:
-                ckpt.save("latest", state, epoch=epoch, best_dice=best_dice,
-                          config_json=cfg_json, seed=cfg.seed)
-                if best_dice < dice:
-                    best_dice = dice
-                    ckpt.save("best", state, epoch=epoch, best_dice=dice,
-                              config_json=cfg_json, seed=cfg.seed)
-                    if is_main:
-                        print(f"New best model saved at epoch {epoch}, "
-                              f"Dice = {dice:.4f}")
-            else:
-                ckpt.save(f"epoch{epoch}", state, epoch=epoch,
-                          best_dice=best_dice, config_json=cfg_json,
-                          seed=cfg.seed)
+            with annotate("checkpoint"):
+                if cfg.save_best:
+                    ckpt.save("latest", state, epoch=epoch,
+                              best_dice=best_dice, config_json=cfg_json,
+                              seed=cfg.seed)
+                    if best_dice < dice:
+                        best_dice = dice
+                        ckpt.save("best", state, epoch=epoch,
+                                  best_dice=dice, config_json=cfg_json,
+                                  seed=cfg.seed)
+                        if is_main:
+                            print(f"New best model saved at epoch {epoch}, "
+                                  f"Dice = {dice:.4f}")
+                else:
+                    ckpt.save(f"epoch{epoch}", state, epoch=epoch,
+                              best_dice=best_dice, config_json=cfg_json,
+                              seed=cfg.seed)
             if early_stopper.step(dice):
                 print(f"Early stopping at epoch {epoch + 1}")
                 break
@@ -466,6 +507,7 @@ def _train(cfg: TrainConfig, maps_done: bool = False,
                 resume_kind = "latest" if cfg.save_best else f"epoch{epoch}"
                 break
     finally:
+        profiling.close()
         guard.uninstall()
 
     if preempted:
@@ -476,7 +518,8 @@ def _train(cfg: TrainConfig, maps_done: bool = False,
         return {"preempted": True, "best_dice": best_dice,
                 "epochs": epochs_run, "steps": state.step,
                 "batch_size": batch_size, "results_file": results_file,
-                "metrics_file": jsonl and jsonl.path}
+                "metrics_file": jsonl and jsonl.path,
+                "trace_file": trace_file}
     total_time = time.time() - start_time
     print(f"Training time {datetime.timedelta(seconds=int(total_time))}")
     # every rank's peak device memory (MB; None on the CPU), on rank 0
@@ -524,7 +567,7 @@ def _train(cfg: TrainConfig, maps_done: bool = False,
             "steps": state.step, "test": test_metrics,
             "batch_size": batch_size, "results_file": results_file,
             "metrics_file": jsonl and jsonl.path, "test_renders": idx,
-            "peak_memory_mb_by_rank": peak_mb}
+            "peak_memory_mb_by_rank": peak_mb, "trace_file": trace_file}
 
 
 def run(argv: Optional[Sequence[str]] = None) -> dict:

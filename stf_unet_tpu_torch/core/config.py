@@ -97,6 +97,9 @@ class ModelConfig:
     # {"auto", "scan", "fused", "last"}: see ops/lstm.pixel_lstm.
     lstm_backend: str = "auto"
     base_c: int = 64  # vanilla UNet width (ref:src/unet.py:7)
+    # Recompute the STF model's encoder in the backward instead of keeping
+    # its activations (models/stf_lstm_unet.py; the UNet ignores it).
+    remat: bool = False
 
     @property
     def total_classes(self) -> int:
@@ -151,6 +154,15 @@ class TrainConfig:
     # bfloat16 compute with float32 parameters (the JAX package's --amp);
     # no loss scaling is needed in bf16.
     amp: bool = False
+    # Float32 matmul and convolution precision (MATMUL_PRECISIONS):
+    # "default" keeps TF32 off, as "highest" / "float32"; "high" /
+    # "tensorfloat32" (or --tf32) turn it on for cuBLAS and cuDNN, the
+    # reference's opt-in (ref:train.py:113,129-133). The hand-written
+    # kernels keep their own arithmetic under every value.
+    matmul_precision: str = "default"
+    # Auxiliary-head loss weight flag, accepted for reference CLI parity
+    # (ref:train.py:102); neither model emits an 'aux' head.
+    aux: bool = False
     # Per-class CE weights, comma-separated, one per TOTAL class.
     loss_class_weights: str = ""
     silent: bool = False
@@ -181,6 +193,16 @@ class TrainConfig:
     # One JSON record per epoch in <output_dir>/<model>_metrics_<stamp>
     # <tag>.jsonl beside the results .txt (utils/profiling.JsonlLogger).
     jsonl_metrics: bool = True
+    # A torch.profiler trace of the first epoch (CPU and CUDA activity) in
+    # <profile_dir>/trace_rank<r>.json ("" = off; utils/profiling.trace).
+    profile_dir: str = ""
+    # The first NaN in a forward output, a loss or a gradient raises
+    # FloatingPointError (utils/profiling.NanCheck; jax_debug_nans).
+    nan_check: bool = False
+    # The JAX package's persistent XLA cache directory: accepted, with a
+    # note. The port compiles no XLA; its nvcc builds persist in
+    # build/kernels already.
+    compile_cache_dir: str = "auto"
     # Where the run computes: CUDA unless the CPU is asked for.
     device: str = "cuda"
 
@@ -228,15 +250,14 @@ def resolve_device(device="cuda") -> torch.device:
 
 # Flags of the JAX package's trainer whose features the port has not
 # implemented yet -> the ROADMAP.md item (§1) that brings them.
-UNPORTED_FLAGS = {
-    "--profile-dir": "long tail",
-    "--nan-check": "long tail",
-    "--matmul-precision": "long tail",
-    "--tf32": "long tail",
-    "--aux": "long tail",
-    "--compile-cache-dir": "long tail",
-    "--model-remat": "long tail",
-}
+UNPORTED_FLAGS: dict = {}
+
+# --matmul-precision -> whether float32 products may use TF32 (cuBLAS
+# matmuls and cuDNN convolutions alike): JAX's names for full float32
+# ("highest", "float32") and for the TF32 pass ("high", "tensorfloat32");
+# "default" keeps the port's full-float32 policy (cli/common).
+MATMUL_PRECISIONS = {"default": False, "highest": False, "float32": False,
+                     "high": True, "tensorfloat32": True}
 
 
 def _parse_bool(s: str) -> bool:
@@ -308,6 +329,7 @@ def parse_config(argv: Optional[Sequence[str]] = None,
         "--use-pk-maps": ("data_use_pk_maps", _parse_bool),
         "--use-subtraction": ("data_use_subtraction", _parse_bool),
         "--data-pack": ("data_pack_dir", str),
+        "--tf32": ("matmul_precision_fast", _parse_bool),
     }
     for flag, (dest, typ) in alias.items():
         if typ is _parse_bool:
@@ -330,6 +352,14 @@ def parse_config(argv: Optional[Sequence[str]] = None,
             parser.error(f"{flag} is not ported to the PyTorch package yet "
                          f"(ROADMAP.md §1, '{item}')")
     cfg = _apply_overrides(cfg, ns)
+    if getattr(ns, "matmul_precision_fast", None):
+        # --tf32: the reduced-precision pass. The JAX package stores
+        # "default" (the TPU's default is its bf16 pass); the H100's is
+        # TF32, whose name in JAX's vocabulary is "tensorfloat32".
+        cfg = dataclasses.replace(cfg, matmul_precision="tensorfloat32")
+    if cfg.matmul_precision not in MATMUL_PRECISIONS:
+        parser.error(f"--matmul-precision {cfg.matmul_precision!r}: "
+                     f"expected one of {sorted(MATMUL_PRECISIONS)}")
     # --use-pk-maps feeds both the dataset and the model (ref:train.py:181,
     # 221).
     return dataclasses.replace(cfg, model=dataclasses.replace(

@@ -8,6 +8,10 @@ strict=True.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+from typing import Iterator
+
 import torch
 import torch.distributed as dist
 import torch.nn as nn
@@ -43,7 +47,12 @@ class TorchBatchNorm(nn.BatchNorm2d):
     Under data parallelism (`convert_sync_batchnorm`) a train-mode layer
     takes its statistics over the global batch instead: flax's rule over
     every rank's rows (_SyncBatchNorm), its running variance updated to
-    flax's rule directly, so the hooks leave it alone."""
+    flax's rule directly, so the hooks leave it alone.
+
+    Inside `frozen_running_stats()` (a rematerialized forward's recompute,
+    models/stf_lstm_unet.py) a train-mode layer normalizes with the batch
+    statistics as before, the synced one all-reducing them again, and
+    leaves every buffer alone: flax's nn.remat updates batch_stats once."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -57,6 +66,8 @@ class TorchBatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if _FROZEN_STATS.get():
+            return self._frozen_forward(x)
         if self.data_group is not None:
             return self._synced_forward(x)
         rows = x.numel() // x.shape[1]
@@ -67,6 +78,18 @@ class TorchBatchNorm(nn.BatchNorm2d):
         y = super().forward(x)
         self.running_var.data.lerp_(keep, 1.0 / rows)
         return y
+
+    def _frozen_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The train-mode output without a buffer update: nn.BatchNorm2d's
+        own call on copies of the running statistics, so the recompute
+        saves for its backward what the first forward saved."""
+        if self.data_group is not None:
+            mean, var, n = global_batch_stats(x)
+            return _SyncBatchNorm.apply(x, self.weight, self.bias, mean,
+                                        var, n, self.eps)
+        return nn.functional.batch_norm(
+            x, self.running_mean.clone(), self.running_var.clone(),
+            self.weight, self.bias, True, self.momentum, self.eps)
 
     def _synced_forward(self, x: torch.Tensor) -> torch.Tensor:
         mean, var, n = global_batch_stats(x)
@@ -79,6 +102,22 @@ class TorchBatchNorm(nn.BatchNorm2d):
             self.num_batches_tracked.add_(1)
         return _SyncBatchNorm.apply(x, self.weight, self.bias, mean, var, n,
                                     self.eps)
+
+
+_FROZEN_STATS: contextvars.ContextVar = contextvars.ContextVar(
+    "frozen_running_stats", default=False)
+
+
+@contextlib.contextmanager
+def frozen_running_stats() -> Iterator[None]:
+    """Within the block train-mode TorchBatchNorms update no buffer (the
+    context variable is this thread's: the recompute of a checkpointed
+    forward runs in the backward's thread, inside this block)."""
+    token = _FROZEN_STATS.set(True)
+    try:
+        yield
+    finally:
+        _FROZEN_STATS.reset(token)
 
 
 def _channel_dims(x: torch.Tensor):

@@ -15,13 +15,15 @@ def create_model(cfg: ModelConfig,
                  dtype: torch.dtype = torch.float32) -> nn.Module:
     """Build the configured model with float32 parameters computing in
     `dtype`. The vanilla UNet takes the T frames as stacked channels, + the
-    pk_channels maps when they ride along (ref:train.py:85-90)."""
+    pk_channels maps when they ride along (ref:train.py:85-90). Only the
+    STF model takes `remat`, as in the JAX package; the UNet ignores it."""
     if cfg.model == "stflstm":
         return STFLSTMUNet(num_classes=cfg.total_classes,
                            time_steps=cfg.time_steps,
                            use_pk_maps=cfg.use_pk_maps,
                            pk_channels=cfg.pk_channels,
-                           lstm_backend=cfg.lstm_backend, dtype=dtype)
+                           lstm_backend=cfg.lstm_backend, dtype=dtype,
+                           remat=cfg.remat)
     if cfg.model == "unet":
         in_channels = cfg.time_steps + (cfg.pk_channels if cfg.use_pk_maps
                                         else 0)

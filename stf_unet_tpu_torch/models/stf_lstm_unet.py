@@ -20,6 +20,15 @@ Topology, as in the JAX package:
     brought back to the scale's width by a 1x1 conv `pk_fusion{i}`
     (ref:117-121, 146-200).
 
+With remat=True the encoder runs under torch.utils.checkpoint (the JAX
+package's nn.remat over it, stf_unet_tpu/models/stf_lstm_unet.py:115-119):
+its activations are dropped after the forward and recomputed in the
+backward. The recompute runs the BN layers in train mode again, with the
+same batch statistics, but updates no running buffer
+(blocks.frozen_running_stats), so a step moves them once, as flax's
+remat does; it re-enters the forward's row-sharding plan (spatial
+parallelism), so its halo exchanges run again, as GSPMD's remat does.
+
 The encoder's modules sit at the top level of this module (conv1, bn1,
 layer1..layer4), as in the reference state_dict, so this class extends
 ResNet34Encoder rather than holding one.
@@ -30,15 +39,19 @@ activations and (cast-on-use) weights run in.
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Iterator
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from stf_unet_tpu_torch.models.blocks import (ConvTranspose, DecoderBlock,
                                               ResidualConvBlock,
-                                              batch_running_var_updates)
+                                              batch_running_var_updates,
+                                              frozen_running_stats)
 from stf_unet_tpu_torch.models.resnet import ResNet34Encoder
+from stf_unet_tpu_torch.ops import conv as conv_lib
 from stf_unet_tpu_torch.ops.conv import Conv2d
 from stf_unet_tpu_torch.ops.lstm import pixel_lstm
 from stf_unet_tpu_torch.ops.resize import resize_bilinear_align_corners
@@ -80,7 +93,7 @@ class STFLSTMUNet(ResNet34Encoder):
     def __init__(self, num_classes: int = 2, time_steps: int = 8,
                  use_pk_maps: bool = False, pk_channels: int = 3,
                  lstm_backend: str = "auto",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         extra = pk_channels if use_pk_maps else 0
         super().__init__(in_channels=1 + extra)
         self.pk_channels = extra
@@ -88,6 +101,7 @@ class STFLSTMUNet(ResNet34Encoder):
         self.time_steps = time_steps
         self.use_pk_maps = use_pk_maps
         self.compute_dtype = dtype
+        self.remat = remat
         for i, width in enumerate(_SCALE_WIDTHS):
             if use_pk_maps:
                 setattr(self, f"pk_fusion{i + 1}",
@@ -105,6 +119,16 @@ class STFLSTMUNet(ResNet34Encoder):
         for i in range(len(_SCALE_WIDTHS)):
             getattr(self, f"lstm{i + 1}").backend = backend
 
+    def _encode(self, folded: torch.Tensor):
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return super().forward(folded)
+        plan = conv_lib.row_handler()
+        return torch.utils.checkpoint.checkpoint(
+            super().forward, folded, use_reentrant=False,
+            preserve_rng_state=False,
+            context_fn=lambda: (contextlib.nullcontext(),
+                                _recompute_scope(plan)))
+
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """x: [B, T(+pk_channels), H, W, C] frames (C=1 for DCE-MRI) ->
         {"out": float32 logits [B, H, W, num_classes]}, the JAX package's
@@ -120,7 +144,7 @@ class STFLSTMUNet(ResNet34Encoder):
                 :, None].expand(bsz, t_steps, -1, -1, -1)], dim=2)
         folded = frames.reshape(bsz * t_steps, frames.shape[2], height, width)
         fused = []
-        for i, feat in enumerate(super().forward(folded)):
+        for i, feat in enumerate(self._encode(folded)):
             _, c, h, w = feat.shape
             if pk_maps is not None:
                 # the same 1x1 conv for every t, so the folded batch is the
@@ -142,3 +166,11 @@ class STFLSTMUNet(ResNet34Encoder):
         if out.shape[-2:] != (height, width):
             out = resize_bilinear_align_corners(out, height, width)
         return {"out": out.permute(0, 2, 3, 1).to(torch.float32)}
+
+
+@contextlib.contextmanager
+def _recompute_scope(plan) -> Iterator[None]:
+    """The encoder's recompute: no BN buffer update, and the row-sharding
+    plan of the forward it repeats (None outside spatial parallelism)."""
+    with frozen_running_stats(), conv_lib.rows(plan):
+        yield

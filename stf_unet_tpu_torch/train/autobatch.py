@@ -4,8 +4,9 @@ stf_unet_tpu/train/autobatch.py).
 `--batch-size auto` on the train CLI. The JAX package reads the XLA
 compiler's memory analysis of the train step; here one REAL step of the
 run's exact configuration (warp, forward, backward, AdamW; the EMA copy
-and the accumulation window included) runs at each of two probe batches
-on the card, and the CUDA caching allocator's peak
+and the accumulation window included; --model-remat's recomputed encoder
+too, as the JAX package compiles its probe step with remat) runs at each
+of two probe batches on the card, and the CUDA caching allocator's peak
 (`torch.cuda.reset_peak_memory_stats` / `max_memory_allocated`) gives its
 memory. The step's memory grows linearly in the batch while the state
 (parameters, AdamW moments, EMA) is fixed, so the two points give bytes

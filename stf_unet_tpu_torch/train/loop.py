@@ -18,6 +18,13 @@ returns is the global mean, all-reduced on the device. Under spatial
 parallelism (a 2-D group) the ranks of a space group augment the same
 data shard's whole images (K2), each keeps its block of the image rows,
 and the forward runs row-sharded (parallel/spatial.row_sharded).
+
+Profiler ranges (utils/profiling.annotate) split a traced epoch's host
+time: "train_step" (augment, forward, backward, apply), "data_wait" (the
+wait for the next device batch), "loss_read" (the previous step's loss
+brought to the host) and "eval_batch"; cli/train adds "eval" and
+"checkpoint". With the NaN check on (state.nan_check) a NaN in the loss
+raises before the backward, which runs in anomaly mode.
 """
 
 from __future__ import annotations
@@ -49,22 +56,30 @@ from stf_unet_tpu_torch.metrics.meters import MetricLogger, SmoothedValue
 from stf_unet_tpu_torch.models.registry import preprocess_input
 from stf_unet_tpu_torch.parallel import spatial
 from stf_unet_tpu_torch.train.state import TrainState
+from stf_unet_tpu_torch.utils.profiling import annotate
 
 
 def loss_and_grads(model, images: torch.Tensor, targets: torch.Tensor,
                    num_classes: int, ignore_index: int = -100,
                    loss_weight: Optional[torch.Tensor] = None,
-                   forward=None, group=None) -> torch.Tensor:
+                   forward=None, group=None, nan_check=None
+                   ) -> torch.Tensor:
     """Train-mode forward, criterion and backward: leaves the gradients
     in the parameters' .grad and returns the loss (a device scalar).
     `forward` runs the model (its DDP wrapper under data parallelism,
-    with `group` for the criterion's global normalizer)."""
+    with `group` for the criterion's global normalizer); `nan_check`
+    (utils/profiling.NanCheck) checks the loss and the backward."""
     model.train()
-    outputs = (forward or model)(preprocess_input(images, model))
-    loss = criterion(outputs, targets, loss_weight=loss_weight,
-                     num_classes=num_classes, ignore_index=ignore_index,
-                     group=group)
-    loss.backward()
+    checked = (nan_check.backward_checked() if nan_check is not None
+               else contextlib.nullcontext())
+    with checked:
+        outputs = (forward or model)(preprocess_input(images, model))
+        loss = criterion(outputs, targets, loss_weight=loss_weight,
+                         num_classes=num_classes, ignore_index=ignore_index,
+                         group=group)
+        if nan_check is not None:
+            nan_check.check_loss(loss)
+        loss.backward()
     return loss
 
 
@@ -157,7 +172,8 @@ def train_step(state: TrainState, augment: TrainAugment,
     with local, rows:
         loss = loss_and_grads(state.model, images, targets, num_classes,
                               loss_weight=loss_weight,
-                              forward=state.ddp, group=state.group)
+                              forward=state.ddp, group=state.group,
+                              nan_check=state.nan_check)
     if state.group is not None:
         loss = mesh_lib.all_sum(state.group, loss.detach().clone()) \
             / state.group.world
@@ -194,13 +210,16 @@ def train_one_epoch(state: TrainState, loader: HostLoader,
     step = start_step
     batches = device_batches(loader.epoch(epoch, skip_batches=start_step),
                              device, device_prefetch)
-    for batch in logger.log_every(batches, print_freq, f"Epoch: [{epoch}]",
-                                  total=len(loader) - start_step):
-        loss, lr = train_step(state, augment, batch,
-                              augment_generator(seed, epoch, step),
-                              schedule, num_classes, device, loss_weight)
+    for batch in _annotated(logger.log_every(
+            batches, print_freq, f"Epoch: [{epoch}]",
+            total=len(loader) - start_step), "data_wait"):
+        with annotate("train_step"):
+            loss, lr = train_step(state, augment, batch,
+                                  augment_generator(seed, epoch, step),
+                                  schedule, num_classes, device, loss_weight)
         if pending is not None:
-            logger.update(loss=pending[0].item(), lr=pending[1])
+            with annotate("loss_read"):
+                logger.update(loss=pending[0].item(), lr=pending[1])
         pending = (loss, lr)
         step += 1
         if should_stop is not None and should_stop():
@@ -209,6 +228,18 @@ def train_one_epoch(state: TrainState, loader: HostLoader,
         logger.update(loss=pending[0].item(), lr=pending[1])
     last_lr = logger.meters["lr"].value if step > start_step else 0.0
     return logger.meters["loss"].global_avg, float(last_lr), step
+
+
+def _annotated(items: Iterable, name: str) -> Iterator:
+    """`items`, each wait for the next one inside a profiler range."""
+    it = iter(items)
+    while True:
+        with annotate(name):
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+        yield item
 
 
 @torch.inference_mode()
@@ -250,25 +281,29 @@ def evaluate(model, eval_batches: Iterable, num_classes: int, *,
     logger = MetricLogger(delimiter="  ")
     for host_image, host_target in logger.log_every(eval_batches,
                                                     print_freq, "Test:"):
-        image = torch.from_numpy(host_image).to(device, non_blocking=True)
-        target = torch.from_numpy(host_target).to(device, non_blocking=True)
-        x = normalize(image, data_cfg.mean, data_cfg.std)
-        if space and spatial.splits(x.shape[2], group.n_space):
-            with spatial.row_sharded(group, *x.shape[2:4]):
-                logits = model(preprocess_input(
-                    spatial.cut_rows(group, x, 2), model))["out"]
-            logits = spatial.gather_rows(logits, group, dim=1)
-        else:
-            logits = model(preprocess_input(x, model))["out"]
-        if space and group.space_index:
-            continue
-        target = target.long()
-        conf = confusion_update(conf, target, torch.argmax(logits, dim=-1))
-        dice_cum, count = eval_dice_update(dice_cum, count, logits, target,
-                                           ignore_index=255)
-        if collect_outputs:
-            outputs.append(logits.cpu().numpy())
-            batches.append((host_image, host_target))
+        with annotate("eval_batch"):
+            image = torch.from_numpy(host_image).to(device,
+                                                    non_blocking=True)
+            target = torch.from_numpy(host_target).to(device,
+                                                      non_blocking=True)
+            x = normalize(image, data_cfg.mean, data_cfg.std)
+            if space and spatial.splits(x.shape[2], group.n_space):
+                with spatial.row_sharded(group, *x.shape[2:4]):
+                    logits = model(preprocess_input(
+                        spatial.cut_rows(group, x, 2), model))["out"]
+                logits = spatial.gather_rows(logits, group, dim=1)
+            else:
+                logits = model(preprocess_input(x, model))["out"]
+            if space and group.space_index:
+                continue
+            target = target.long()
+            conf = confusion_update(conf, target,
+                                    torch.argmax(logits, dim=-1))
+            dice_cum, count = eval_dice_update(dice_cum, count, logits,
+                                               target, ignore_index=255)
+            if collect_outputs:
+                outputs.append(logits.cpu().numpy())
+                batches.append((host_image, host_target))
     if reduce_across_processes and dist.is_initialized():
         sums = torch.tensor([count], dtype=torch.int64, device=device)
         for t in (conf, dice_cum, sums):

@@ -89,6 +89,8 @@ class TrainState:
     # `model` (data_parallel), or None for one process
     group: Any = None
     ddp: Optional[nn.Module] = None
+    # utils/profiling.NanCheck under --nan-check, else None
+    nan_check: Any = None
 
     def update_ema(self) -> None:
         """Advance the EMA after an apply (the JAX train step's update)."""

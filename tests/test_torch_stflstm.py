@@ -226,6 +226,12 @@ DEPLOY_MODULES = (
     "pk/enhanced.py", "pk/debug.py", "cli/predict.py", "cli/pipeline.py",
     "cli/serve.py", "serve/http.py", "serve/engine.py",
 )
+# Modules of the trainer's diagnostics and the model and data tools.
+TOOLS_MODULES = (
+    "utils/profiling.py", "models/stf_lstm_unet.py", "cli/val.py",
+    "cli/average.py", "cli/migrate.py", "cli/export.py", "cli/stats.py",
+    "cli/split.py", "cli/doctor.py", "cli/merge.py",
+)
 # Modules of data parallelism.
 PARALLEL_MODULES = (
     "core/distributed.py", "core/mesh.py", "parallel/__init__.py",
@@ -237,7 +243,7 @@ PARALLEL_MODULES = (
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "stf_unet_tpu_torch").rglob("*.py"))
     for rel in (TRAINING_MODULES + TEST_MODULES + PK_MODULES
-                + DEPLOY_MODULES + PARALLEL_MODULES):
+                + DEPLOY_MODULES + PARALLEL_MODULES + TOOLS_MODULES):
         assert REPO / "stf_unet_tpu_torch" / rel in files, rel
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 40

@@ -161,7 +161,7 @@ def test_parse_config_reference_flags():
 
 
 # Flags of items ported since they were refused here -> the value they
-# parse to; the others still stop with their ROADMAP item.
+# parse to; a flag still in UNPORTED_FLAGS stops with its ROADMAP item.
 PORTED = {
     "--grad-accum": lambda c: c.grad_accum == 2,
     "--optim-ema-decay": lambda c: c.optim.ema_decay == 0.99,
@@ -173,6 +173,13 @@ PORTED = {
     "--data-parallel": lambda c: c.data_parallel == 2,
     "--spatial-parallel": lambda c: c.spatial_parallel == 2,
     "--jsonl-metrics": lambda c: c.jsonl_metrics is False,
+    "--profile-dir": lambda c: c.profile_dir == "/p",
+    "--nan-check": lambda c: c.nan_check is True,
+    "--matmul-precision": lambda c: c.matmul_precision == "high",
+    "--tf32": lambda c: c.matmul_precision == "tensorfloat32",
+    "--aux": lambda c: c.aux is True,
+    "--compile-cache-dir": lambda c: c.compile_cache_dir == "/c",
+    "--model-remat": lambda c: c.model.remat is True,
 }
 
 
@@ -187,14 +194,20 @@ PORTED = {
     (["--spatial-parallel", "2"], "spatial parallelism"),
     (["--batch-size", "auto"], "autobatch"),
     (["--jsonl-metrics", "false"], "long tail"),
+    (["--profile-dir", "/p"], "long tail"),
+    (["--nan-check"], "long tail"),
+    (["--matmul-precision", "high"], "long tail"),
+    (["--tf32", "true"], "long tail"),
+    (["--aux"], "long tail"),
+    (["--compile-cache-dir", "/c"], "long tail"),
+    (["--model-remat", "true"], "long tail"),
 ])
 def test_unported_flags_name_their_roadmap_item(argv, item, capsys):
     from stf_unet_tpu_torch.core.config import UNPORTED_FLAGS
 
     if argv[0] in PORTED:
         assert argv[0] not in UNPORTED_FLAGS
-        if item != "long tail":  # the rest of that item is still refused
-            assert item not in UNPORTED_FLAGS.values()
+        assert item not in UNPORTED_FLAGS.values()
         assert PORTED[argv[0]](parse_config(argv))
         return
     with pytest.raises(SystemExit):
