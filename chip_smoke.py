@@ -78,8 +78,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      224, 3 epochs = 12 steps) on the same tree: every loss finite, K2
      launched (Cs = 9), and one comparison render per test record.
  10. UNet steps: phase 7 on the UNet, with its step's convolution FLOPs
-     (3.555 TFLOP at batch 16, counted from the layers' shapes) against
-     the card's dense bf16 peak.
+     (3.555 TFLOP at batch 16, counted from the layers' shapes by
+     utils/benchkit.forward_flops) against the card's dense bf16 peak.
  11. UNet parity: the UNet's best checkpoint in f32 on the card and on the
      CPU, the logits of two test slices within 1e-4 of max |logit|.
  12. cli/test: `stf_unet_tpu_torch.cli.test.main` (bf16) on the best
@@ -206,6 +206,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      both at batch 8; (f) cli.migrate --reverse then forward (phase 6's
      checkpoint back bit for bit) and cli.average of its latest and best
      served once by cli/serve (200).
+ 25. benchkit and plots: (a) every utils/benchkit helper at its sizes
+     (batch 16, crop 224, T=8, 256^2 sources; BENCH_ITERS iterations,
+     the median of BENCH_REPS windows): the UNet and STF-LSTM-UNet bf16
+     train steps, the fused augment + train step and its rotation-split
+     twin on the UNet, the STF-LSTM-UNet's bf16 / int8 serving forwards
+     (both, and each alone), the packed val epoch at batch 1 and 8 and
+     at batch 1 alone; each dict printed beside the card's name and
+     power limit, every number finite and > 0, the UNet step's counted
+     FLOPs equal to UNET_STEP_FLOP within 1e-3; K1f, K1b, K2, K3, K5 and
+     K6 launched; (b) cli.plot on phase 6's metrics JSONL and results
+     text: parse_run gives the epochs the run logged; without
+     matplotlib the CLI exits non-zero naming it, with it the PNGs are
+     written.
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -1606,33 +1619,6 @@ def train_objects(data: str, dtype, device, batch: int, pk: bool = False,
     return state, TrainAugment(cfg), host
 
 
-def conv_flops(model, x) -> float:
-    """Multiply-add FLOPs (2 per MAC) of the convolutions and transposed
-    convolutions of one forward of `model` on x, counted from the shapes
-    each layer sees."""
-    import torch
-
-    from stf_unet_tpu_torch.ops.conv import Conv2d, ConvTranspose2d
-
-    total = [0.0]
-
-    def hook(mod, inp, out):
-        kh, kw = mod.kernel_size
-        per = 2.0 * kh * kw * mod.in_channels * mod.out_channels / mod.groups
-        pixels = (inp[0] if isinstance(mod, ConvTranspose2d) else out)
-        total[0] += per * pixels[:, 0].numel()
-
-    handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, (Conv2d, ConvTranspose2d))]
-    try:
-        with torch.no_grad():
-            model.eval()(x)
-    finally:
-        for h in handles:
-            h.remove()
-    return total[0]
-
-
 def step_phase(data: str, device: str = "cuda", pk: bool = False,
                model_name: str = "stflstm"):
     """bf16 training steps at batch 16 on one fixed batch: the loss of
@@ -1647,6 +1633,7 @@ def step_phase(data: str, device: str = "cuda", pk: bool = False,
     from stf_unet_tpu_torch.core.prng import augment_generator
     from stf_unet_tpu_torch.models.registry import preprocess_input
     from stf_unet_tpu_torch.train.loop import train_step
+    from stf_unet_tpu_torch.utils import benchkit
 
     state, augment, host = train_objects(data, torch.bfloat16, device,
                                          TRAIN_BATCH, pk=pk,
@@ -1688,8 +1675,8 @@ def step_phase(data: str, device: str = "cuda", pk: bool = False,
         images, _ = augment(augment_generator(0, 0, 0),
                             torch.from_numpy(host.frames).to(dev),
                             torch.from_numpy(host.masks).to(dev), host.sizes)
-        step_flop = 3 * conv_flops(state.model,
-                                   preprocess_input(images, state.model))
+        step_flop = 3 * benchkit.forward_flops(
+            state.model, preprocess_input(images, state.model))
         flops = {"step_tflop": step_flop / 1e12,
                  "bound_ms": step_flop / PEAK_FLOPS["bf16"] * 1e3,
                  "share_of_bf16_peak": step_flop / PEAK_FLOPS["bf16"]
@@ -5141,6 +5128,123 @@ def diagnostics_phase(tmpdir: str, data: str, weights: str) -> dict:
     return total
 
 
+# Phase 25: utils/benchkit's helpers at their own sizes with few
+# iterations (BENCH_ITERS, the median of BENCH_REPS windows), and cli.plot
+# on phase 6's logs. The packed val epoch alone runs on a smaller tree
+# (BENCH_VAL_SAMPLES) than the two-batch-size one (benchkit's default 64).
+BENCH_ITERS = 5
+BENCH_REPS = 2
+BENCH_VAL_SAMPLES = 16
+BENCH_KERNELS = ("lstm_last_x", "lstm_last_x_bwd", "warp", "lstm_last",
+                 "quant_patches", "quant_epilogue")
+
+
+def _positive_numbers(label: str, value) -> None:
+    if isinstance(value, dict):
+        for k, v in value.items():
+            _positive_numbers(f"{label}.{k}", v)
+        return
+    check(isinstance(value, (int, float)) and math.isfinite(value)
+          and value > 0, f"benchkit {label} = {value!r}, expected a "
+                         f"finite number > 0")
+
+
+def benchkit_phase(tmpdir: str, train_result: dict,
+                   device: str = "cuda") -> dict:
+    """25. (a) and (b) above. Returns the launch counts of (a)."""
+    from stf_unet_tpu_torch.cli import plot as cli_plot
+    from stf_unet_tpu_torch.core.config import ModelConfig
+    from stf_unet_tpu_torch.utils import benchkit as bk
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    timing = {"iters": BENCH_ITERS, "timed_reps": BENCH_REPS,
+              "device": device}
+    runs = (
+        ("measure_train_step unet bf16",
+         lambda: bk.measure_train_step("unet", True, **timing)),
+        ("measure_train_step stflstm bf16",
+         lambda: bk.measure_train_step("stflstm", True, **timing)),
+        ("measure_fused_train unet", lambda: bk.measure_fused_train(
+            model_name="unet", **timing)),
+        ("measure_fused_rotsplit unet", lambda: bk.measure_fused_rotsplit(
+            model_name="unet", **timing)),
+        ("measure_serving_both stflstm",
+         lambda: bk.measure_serving_both("stflstm", **timing)),
+        ("measure_serving stflstm int8",
+         lambda: bk.measure_serving("stflstm", int8=True, **timing)),
+        ("measure_val_epoch_packed_multi stflstm",
+         lambda: bk.measure_val_epoch_packed_multi(
+             "stflstm", batch_sizes=(1, 8), timed_reps=BENCH_REPS,
+             device=device)),
+        ("measure_val_epoch_packed stflstm",
+         lambda: bk.measure_val_epoch_packed(
+             "stflstm", n_samples=BENCH_VAL_SAMPLES, batch_size=1,
+             timed_reps=BENCH_REPS, device=device)),
+    )
+    kernels = reset_counts()
+    results = {}
+    for label, run in runs:
+        t0 = time.perf_counter()
+        results[label] = run()
+        _positive_numbers(label, results[label])
+        print(json.dumps({"benchkit": {
+            "call": label, "card": card, "result": results[label],
+            "wall_s": time.perf_counter() - t0}}), flush=True)
+    launches = _launches(kernels)
+    for name in BENCH_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched by the "
+                                  f"benchkit helpers")
+    unet = results["measure_train_step unet bf16"]
+    flop = bk.step_flops(ModelConfig(model="unet", num_classes=1,
+                                     time_steps=T_STEPS), TRAIN_BATCH, CROP)
+    check(abs(flop - UNET_STEP_FLOP) <= 1e-3 * UNET_STEP_FLOP,
+          f"benchkit's UNet step FLOPs {flop:.6g}, expected "
+          f"{UNET_STEP_FLOP:.6g}")
+    implied = unet["tflops"] * 1e12 * unet["ms_per_step"] * 1e-3
+    check(abs(implied - flop) <= 1e-6 * flop,
+          f"measure_train_step's tflops imply {implied:.6g} FLOPs a step, "
+          f"its counter {flop:.6g}")
+
+    # (b) cli.plot on phase 6's per-epoch logs
+    logged = [e["epoch"] for e in train_result["epochs"]]
+    logs = (train_result["metrics_file"], train_result["results_file"])
+    for path in logs:
+        got = cli_plot.parse_run(path)["epoch"]
+        check(got == logged, f"cli.plot.parse_run({os.path.basename(path)})"
+                             f" gave epochs {got}, the run logged {logged}")
+    plots = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    drawn = _have_matplotlib()
+    for label, argv in (("single", [logs[1]]),
+                        ("compare", list(logs) + ["--output", os.path.join(
+                            tmpdir, "compare_curves.png")])):
+        proc = subprocess.run(
+            [sys.executable, "-m", "stf_unet_tpu_torch.cli.plot", *argv],
+            cwd=root, capture_output=True, text=True, timeout=300)
+        if drawn:
+            written = [line[len("wrote "):] for line in
+                       proc.stdout.splitlines() if line.startswith("wrote ")]
+            check(proc.returncode == 0 and written
+                  and all(os.path.getsize(w) > 0 for w in written),
+                  f"cli.plot {label}: rc {proc.returncode}, "
+                  f"{proc.stderr.strip()[-300:]}")
+            plots[label] = {"rc": 0, "png": written}
+        else:
+            message = proc.stderr.strip().splitlines()[-1:] or [""]
+            check(proc.returncode != 0 and "matplotlib" in message[0],
+                  f"cli.plot {label} without matplotlib: rc "
+                  f"{proc.returncode}, {proc.stderr.strip()[-300:]}")
+            plots[label] = {"rc": proc.returncode, "message": message[0]}
+    print(json.dumps({"benchkit_phase": {
+        "card": card, "unet_step_flop": flop,
+        "unet_step_flop_expected": UNET_STEP_FLOP,
+        "plot_epochs": logged, "matplotlib": drawn, "cli_plot": plots,
+        "launches": launches,
+        "phase_wall_s": time.perf_counter() - t_phase}}), flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -5254,6 +5358,9 @@ def main() -> int:
         # checkpoint
         torch.cuda.empty_cache()
         deploy["diagnostics"] = diagnostics_phase(tmpdir, data, stf_weights)
+        # the measurement helpers on the card; cli.plot on phase 6's logs
+        torch.cuda.empty_cache()
+        deploy["benchkit"] = benchkit_phase(tmpdir, train_result)
     for name in ("quant_patches", "quant_epilogue"):
         agg[name]["device_ms"] = int8_forwards["stflstm"]["int8_split_b8"][
             f"{name}_ms"]

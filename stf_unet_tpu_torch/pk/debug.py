@@ -28,19 +28,7 @@ from PIL import Image, ImageDraw
 from stf_unet_tpu_torch.core.config import PKConfig
 from stf_unet_tpu_torch.pk.fit import fit_adam_debug, fit_lm
 from stf_unet_tpu_torch.pk.tofts import ToftsQuadrature
-
-
-def pyplot(flag: str = "--debug"):
-    """matplotlib.pyplot on the Agg backend; an ImportError naming
-    matplotlib and `flag` where it is not installed."""
-    try:
-        import matplotlib
-    except ImportError as e:
-        raise ImportError(f"{flag} draws its plots with matplotlib, which "
-                          f"is not installed") from e
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-    return plt
+from stf_unet_tpu_torch.viz.tic import pyplot
 
 
 def sample_curve_indices(num_valid: int, num_samples: int = 10,

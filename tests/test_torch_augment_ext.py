@@ -40,6 +40,17 @@ CROP = 32
 SRC = 40
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _batch(seed, bsz=2, pk=False):
     rng = np.random.default_rng(seed)
     frames = torch.from_numpy(rng.integers(0, 256, (bsz, 8, SRC, SRC),

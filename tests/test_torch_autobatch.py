@@ -6,6 +6,7 @@ cli/train's auto raises. Exact integer equality; no tolerance.
 """
 
 import pytest
+import torch
 
 import stf_unet_tpu.train.autobatch as jax_autobatch
 from stf_unet_tpu.core.config import TrainConfig as JaxTrainConfig
@@ -16,6 +17,17 @@ from stf_unet_tpu_torch.train.autobatch import pick_batch_size
 
 GIB = 2 ** 30
 MIB = 2 ** 20
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _linear(per_sample, fixed, state):

@@ -68,6 +68,17 @@ CONF_TOL = 1e-3  # share of pixels that may sit in other confusion cells
 ARGS = ["--model", "unet", "--crop-size", str(CROP), "--base-c", str(BASE_C)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     base = tmp_path_factory.mktemp("cli_test")

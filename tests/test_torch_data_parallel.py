@@ -293,6 +293,17 @@ torch.save = _logged
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _env(extra_path=None):
     env = dict(os.environ)
     paths = [p for p in (extra_path, REPO, env.get("PYTHONPATH")) if p]

@@ -16,6 +16,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from stf_unet_tpu.cli import doctor as jax_doctor
@@ -24,6 +25,17 @@ from stf_unet_tpu.cli import split as jax_split
 from stf_unet_tpu.cli import stats as jax_stats
 from stf_unet_tpu_torch.cli import doctor, merge, split, stats
 from stf_unet_tpu_torch.data.synthetic import make_synthetic_breadm
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _both(capsys, jax_main, port_main, argv):

@@ -55,6 +55,17 @@ TWO = [torch.device("cpu")] * 2
 CFG = DataConfig(crop_size=CROP)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def pair():
     """A seeded JAX UNet (base_c 4) and the port's UNet on its weights."""

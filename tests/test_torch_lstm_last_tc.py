@@ -45,6 +45,17 @@ BF16 = torch.bfloat16
 SHAPES = [(8, 70, 256), (8, 49, 512), (8, 37, 512), (3, 20, 256)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(t, n, c, seed):
     """x_proj = x @ W_ih rounded to bf16 (as the serving path hands it to
     K3), W_hh and b: bf16-exact numpy arrays, so JAX and the port start

@@ -43,6 +43,17 @@ SHAPES = [(8, 96, 64), (4, 200, 128), (8, 300, 64)]
 NAMES = ("dx", "dw_ih", "dw_hh", "db")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(t, n, c, seed):
     rng = np.random.default_rng(seed)
     k = 1.0 / np.sqrt(c)

@@ -44,6 +44,17 @@ FLAGS = ["--model", "unet", "--model-base-c", "4", "--device", "cpu",
 STOP = 3  # steps: inside epoch 1's accumulation window
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def TILED_ARGV(test_argv):
     """cli.test's tiled pass (no --threshold-sweep: it refuses --tiled)."""
     return [a for a in test_argv if a != "--threshold-sweep"] + ["--tiled"]

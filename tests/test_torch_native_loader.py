@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from stf_unet_tpu.data import native_loader as jax_native
@@ -25,6 +26,17 @@ from stf_unet_tpu_torch.data.synthetic import make_synthetic_breadm
 from stf_unet_tpu_torch.data.transforms import banded_resize_u8
 
 SEQ = tuple(f"SUB{i}" for i in range(1, 9))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from stf_unet_tpu.cli import pack as jax_pack_cli
 from stf_unet_tpu.data.index import DatasetIndex as JaxDatasetIndex
@@ -23,6 +24,17 @@ from stf_unet_tpu_torch.train.loop import eval_batches_from_index
 
 SEQ = tuple(f"SUB{i}" for i in range(1, 9))
 FLAGS = ["--use-subtraction", "--use-pk-maps", "--eval-size", "32"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

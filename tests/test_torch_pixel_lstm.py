@@ -30,6 +30,17 @@ F32_ATOL = 2e-5
 BF16_ATOL = 2.0 ** -7
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(t, n, c, seed):
     rng = np.random.default_rng(seed)
     k = 1.0 / np.sqrt(c)

@@ -53,6 +53,17 @@ SEQS = tuple(f"SUB{i}" for i in range(1, 9))
 FIT_TOL, FIT_SHARE = 1e-4, 0.99
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _auto_images(seed=0):
     """[8, 16, 16] curves in [0, 1] with one steep voxel, and a mask."""
     rng = np.random.default_rng(seed)

@@ -68,6 +68,17 @@ PROB_TOL = 2.0 ** -10 + 1e-5
 ARGS = ["--model", "unet", "--crop-size", str(CROP), "--base-c", str(BASE_C)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _save(base, name, model_name, variables):
     """A JAX checkpoint of `variables` and its port export; the two
     model dirs."""

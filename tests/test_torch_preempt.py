@@ -27,6 +27,17 @@ EXTRAS = ["--grad-accum", "2", "--optim-ema-decay", "0.9",
           "--data-brightness", "0.1", "--data-noise-std", "0.02"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
     root = tmp_path_factory.mktemp("preempt")

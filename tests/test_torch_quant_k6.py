@@ -41,6 +41,17 @@ DTYPES = {"f32": (jnp.float32, torch.float32),
 CIN, COUT = 5, 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _gather_numpy(xq, kernel, stride, pad):
     """[N, C, H, W] integers -> [N*Ho*Wo, KH*KW*C], column (dy*KW + dx)*C
     + c: the patch order K5 writes, spelled out tap by tap."""

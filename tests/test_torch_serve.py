@@ -29,6 +29,17 @@ CROP = 64
 T_STEPS = 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def weights(tmp_path_factory):
     torch.manual_seed(0)

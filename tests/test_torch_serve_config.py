@@ -32,6 +32,17 @@ SERVE_FLAGS = ["--port", "0", "--device", "cpu", "--dtype", "f32",
                "--max-batch", "2", "--batch-window-ms", "1"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def checkpoint(tmp_path_factory):
     root = tmp_path_factory.mktemp("serve_config")

@@ -33,6 +33,17 @@ ARGS = ["--model", "unet", "--port", "0", "--device", "cpu", "--dtype",
         "--batch-window-ms", "1"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _write(path, seed, epoch, base_c=BASE_C):
     torch.manual_seed(seed)
     model = create_model(ModelConfig(model="unet", base_c=base_c))

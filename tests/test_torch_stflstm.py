@@ -32,6 +32,17 @@ REL_TOL = 1e-4
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_model():
     model = JaxSTFLSTMUNet(num_classes=2, time_steps=T_STEPS)
@@ -239,11 +250,17 @@ PARALLEL_MODULES = (
     "train/autobatch.py",
 )
 
+# The last modules: the card's measurement helpers and the plots.
+LAST_MODULES = (
+    "utils/benchkit.py", "viz/tic.py", "viz/__init__.py", "cli/plot.py",
+)
+
 
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "stf_unet_tpu_torch").rglob("*.py"))
     for rel in (TRAINING_MODULES + TEST_MODULES + PK_MODULES
-                + DEPLOY_MODULES + PARALLEL_MODULES + TOOLS_MODULES):
+                + DEPLOY_MODULES + PARALLEL_MODULES + TOOLS_MODULES
+                + LAST_MODULES):
         assert REPO / "stf_unet_tpu_torch" / rel in files, rel
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 40

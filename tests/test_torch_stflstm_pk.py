@@ -54,6 +54,17 @@ PK = 3
 REL_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _numpy_leaf(rng, name, shape):
     """A parameter or statistic of the given kind, drawn with numpy at a
     scale that keeps activations in range through ~40 layers."""

@@ -47,6 +47,17 @@ LOG2E = math.log2(math.e)
 T_POINTS = np.arange(8, dtype=np.float32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rates(n, seed):
     """Rates K/ve over [0, 1000] as chip_smoke.py draws them: log-uniform
     over [1e-3, 1e3] and uniform halves, one 0."""

@@ -58,6 +58,17 @@ T_STEPS = 2
 SIZE = 32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _logits_targets(seed, b=2, h=12, w=10, c=3, ignore=None):
     rng = np.random.default_rng(seed)
     logits = rng.normal(size=(b, h, w, c)).astype(np.float32) * 3

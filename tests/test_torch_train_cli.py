@@ -19,6 +19,17 @@ FLAGS = ["--device", "cpu", "--data-base-size", "40",
          "--data-crop-size", "32", "--batch-size", "2", "--print-freq", "1"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def run_dirs(tmp_path_factory):
     root = tmp_path_factory.mktemp("train_cli")

@@ -44,6 +44,17 @@ PK = 3
 REL_TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def seeded_unet_variables(model, in_channels, seed):
     """Variables of a JAX UNet drawn from a numpy seed: the tree of
     model.init (traced by eval_shape, so nothing compiles), every leaf

@@ -31,6 +31,17 @@ from stf_unet_tpu_torch.data import transforms as T
 from stf_unet_tpu_torch.ops.kernels.warp import warp, warp_plain
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _params(rng, src_h, src_w, ho, wo, max_deg=30.0):
     """Affine-family parameters as the training draws them."""
     r = rng.uniform(0.5, 1.2) * min(src_h, src_w)

@@ -25,6 +25,17 @@ from stf_unet_tpu_torch.ops.kernels.warp import (PLANE_BYTES, TILE,
 CANVAS = 256
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's small CPU steps: the test
+    workers share the host's cores, and torch's default of a thread per
+    core makes each tiny op of one worker wait on the others'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _extreme_grids(crop: int):
     """gy, gx [N, crop, crop] of every extreme training draw on a 256^2
     canvas: valid region 256x256 or 240x224, short edge resized to the
