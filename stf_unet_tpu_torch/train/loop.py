@@ -19,12 +19,19 @@ parallelism (a 2-D group) the ranks of a space group augment the same
 data shard's whole images (K2), each keeps its block of the image rows,
 and the forward runs row-sharded (parallel/spatial.row_sharded).
 
-Profiler ranges (utils/profiling.annotate) split a traced epoch's host
-time: "train_step" (augment, forward, backward, apply), "data_wait" (the
-wait for the next device batch), "loss_read" (the previous step's loss
-brought to the host) and "eval_batch"; cli/train adds "eval" and
-"checkpoint". With the NaN check on (state.nan_check) a NaN in the loss
-raises before the backward, which runs in anomaly mode.
+Spans (utils/profiling.annotate: profiler ranges, and records under
+record_spans) split an epoch's host time by step: "data_wait" (the wait
+for the next device batch; at the epoch's first step also the loader's
+restart, the re-shuffle and the prefetch thread's start), "train_step"
+and inside it "augment" (the draws, K2, normalize; a prefetched batch is
+freed there, DeviceBatch.tensors), "forward" (model and
+criterion), "backward" (the autograd engine's dispatch, which the calling
+thread waits out) and "optimizer" (the loss all-reduce under a group, the
+lr, the AdamW apply and the EMA update), then "loss_read" (the step's
+loss brought to the host, one step late); evaluate marks "eval_batch",
+and cli/train adds "eval" and "checkpoint". With the NaN check on
+(state.nan_check) a NaN in the loss raises before the backward, which
+runs in anomaly mode.
 """
 
 from __future__ import annotations
@@ -69,17 +76,19 @@ def loss_and_grads(model, images: torch.Tensor, targets: torch.Tensor,
     `forward` runs the model (its DDP wrapper under data parallelism,
     with `group` for the criterion's global normalizer); `nan_check`
     (utils/profiling.NanCheck) checks the loss and the backward."""
-    model.train()
     checked = (nan_check.backward_checked() if nan_check is not None
                else contextlib.nullcontext())
     with checked:
-        outputs = (forward or model)(preprocess_input(images, model))
-        loss = criterion(outputs, targets, loss_weight=loss_weight,
-                         num_classes=num_classes, ignore_index=ignore_index,
-                         group=group)
-        if nan_check is not None:
-            nan_check.check_loss(loss)
-        loss.backward()
+        with annotate("forward"):
+            model.train()
+            outputs = (forward or model)(preprocess_input(images, model))
+            loss = criterion(outputs, targets, loss_weight=loss_weight,
+                             num_classes=num_classes,
+                             ignore_index=ignore_index, group=group)
+            if nan_check is not None:
+                nan_check.check_loss(loss)
+        with annotate("backward"):
+            loss.backward()
     return loss
 
 
@@ -97,14 +106,22 @@ class DeviceBatch:
 
     def tensors(self) -> Tuple[torch.Tensor, torch.Tensor,
                                Optional[torch.Tensor]]:
-        """(frames, masks, pk), safe to use on the current stream."""
-        if self.ready is not None:
-            stream = torch.cuda.current_stream(self.frames.device)
-            stream.wait_event(self.ready)
-            for t in (self.frames, self.masks, self.pk):
-                if t is not None:  # not reused before this stream is done
-                    t.record_stream(stream)
-        return self.frames, self.masks, self.pk
+        """(frames, masks, pk), safe to use on the current stream. A
+        batch copied ahead (`ready`, device_batches) is used once and
+        hands its tensors over, so they are freed in the step that used
+        them: held here until the next batch replaced it, their release
+        took about a millisecond of host time a step on an H100, while
+        the card waited between two steps."""
+        if self.ready is None:
+            return self.frames, self.masks, self.pk
+        out = (self.frames, self.masks, self.pk)
+        stream = torch.cuda.current_stream(self.frames.device)
+        stream.wait_event(self.ready)
+        for t in out:
+            if t is not None:  # not reused before this stream is done
+                t.record_stream(stream)
+        self.frames = self.masks = self.pk = self.ready = None
+        return out
 
 
 def batch_to_device(batch: Batch, device: torch.device,
@@ -155,8 +172,10 @@ def train_step(state: TrainState, augment: TrainAugment,
     on the device, the window's lr)."""
     if not isinstance(batch, DeviceBatch):
         batch = batch_to_device(batch, device)
-    frames, masks, pk = batch.tensors()
-    images, targets = augment(gen, frames, masks, batch.sizes, pk)
+    with annotate("augment"):
+        frames, masks, pk = batch.tensors()
+        images, targets = augment(gen, frames, masks, batch.sizes, pk)
+        del frames, masks, pk  # a handed-over batch is freed here
     k = state.grad_accum
     lr = schedule(state.step // k)
     if state.step % k == 0:
@@ -174,18 +193,20 @@ def train_step(state: TrainState, augment: TrainAugment,
                               loss_weight=loss_weight,
                               forward=state.ddp, group=state.group,
                               nan_check=state.nan_check)
-    if state.group is not None:
-        loss = mesh_lib.all_sum(state.group, loss.detach().clone()) \
-            / state.group.world
-    state.step += 1
-    if state.step % k == 0:
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        if k > 1:
-            torch._foreach_div_([p.grad for p in state.model.parameters()
-                                 if p.grad is not None], float(k))
-        state.optimizer.step()
-        state.update_ema()
+    with annotate("optimizer"):
+        if state.group is not None:
+            loss = mesh_lib.all_sum(state.group, loss.detach().clone()) \
+                / state.group.world
+        state.step += 1
+        if state.step % k == 0:
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            if k > 1:
+                torch._foreach_div_([p.grad for p in
+                                     state.model.parameters()
+                                     if p.grad is not None], float(k))
+            state.optimizer.step()
+            state.update_ema()
     return loss.detach(), lr
 
 
@@ -206,40 +227,60 @@ def train_one_epoch(state: TrainState, loader: HostLoader,
     step; device_prefetch batches are copied ahead (device_batches)."""
     logger = MetricLogger(delimiter="  ")
     logger.add_meter("lr", SmoothedValue(window_size=1, fmt="{value:.6f}"))
-    pending = None  # the previous step's (loss, lr), read one step late
+    pending = None  # the previous step's (loss, lr, step), read one late
     step = start_step
-    batches = device_batches(loader.epoch(epoch, skip_batches=start_step),
-                             device, device_prefetch)
-    for batch in _annotated(logger.log_every(
-            batches, print_freq, f"Epoch: [{epoch}]",
-            total=len(loader) - start_step), "data_wait"):
-        with annotate("train_step"):
+    total = len(loader) - start_step
+    batches = _waited(lambda: device_batches(
+        loader.epoch(epoch, skip_batches=start_step), device,
+        device_prefetch), epoch, start_step, total)
+    for batch in logger.log_every(batches, print_freq, f"Epoch: [{epoch}]",
+                                  total=total):
+        with annotate("train_step", (epoch, step)):
             loss, lr = train_step(state, augment, batch,
                                   augment_generator(seed, epoch, step),
                                   schedule, num_classes, device, loss_weight)
         if pending is not None:
-            with annotate("loss_read"):
-                logger.update(loss=pending[0].item(), lr=pending[1])
-        pending = (loss, lr)
+            _read_loss(logger, *pending)
+        pending = (loss, lr, (epoch, step))
         step += 1
         if should_stop is not None and should_stop():
             break
     if pending is not None:
-        logger.update(loss=pending[0].item(), lr=pending[1])
+        _read_loss(logger, *pending)
     last_lr = logger.meters["lr"].value if step > start_step else 0.0
     return logger.meters["loss"].global_avg, float(last_lr), step
 
 
-def _annotated(items: Iterable, name: str) -> Iterator:
-    """`items`, each wait for the next one inside a profiler range."""
-    it = iter(items)
-    while True:
-        with annotate(name):
-            try:
-                item = next(it)
-            except StopIteration:
+def _waited(make: Callable[[], Iterable], epoch: int, first: int,
+            count: int) -> Iterator:
+    """The first `count` items of make(), each wait for one a "data_wait"
+    span of its step; the first wait also makes the iterator (the
+    loader's restart, the re-shuffle, the prefetch thread's start). The
+    iterator is closed after the last, unexhausted: no wait is spanned
+    past the epoch's last step."""
+    it = None
+    try:
+        for step in range(first, first + count):
+            with annotate("data_wait", (epoch, step)):
+                if it is None:
+                    it = iter(make())
+                item = next(it, _END)
+            if item is _END:
                 return
-        yield item
+            yield item
+    finally:
+        if it is not None:
+            it.close()
+
+
+_END = object()
+
+
+def _read_loss(logger: MetricLogger, loss: torch.Tensor, lr: float,
+               step: Tuple[int, int]) -> None:
+    """A step's loss brought to the host: a "loss_read" span of it."""
+    with annotate("loss_read", step):
+        logger.update(loss=loss.item(), lr=lr)
 
 
 @torch.inference_mode()

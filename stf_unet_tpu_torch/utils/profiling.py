@@ -6,10 +6,18 @@ stf_unet_tpu/utils/profiling.py).
     (one file per rank under data parallelism); cli/train --profile-dir
     traces the first epoch. The port's kernels appear in it by their CUDA
     symbols (`stf::lstm_last_x_tc_kernel`, ...), launched through ctypes.
-  * `annotate(name)`: a named range in that trace
-    (torch.profiler.record_function); train/loop.py and cli/train mark the
-    step, the wait for the next batch, the loss read, the evaluation and
+  * `annotate(name, step=None)`: a named span of host time. Under a
+    profiler it is a range in the trace (torch.profiler.record_function);
+    inside `record_spans()` it is also kept in memory as a `Span`, on the
+    Unix clock that the profiler stamps its events on. With neither it
+    costs a flag read and enters nothing. train/loop.py marks each
+    training step and, inside it, the augmentation, the forward, the
+    backward and the optimizer, besides the wait for the next batch and
+    the loss read; loop.evaluate and cli/train mark the evaluation and
     the checkpoint saves.
+  * `record_spans()`: keeps every span the block's annotations open, on
+    every thread, for a caller that reads them when the block ends
+    (nothing is written to disk).
   * `NanCheck(model)`: the counterpart of jax_debug_nans for
     cli/train --nan-check.
   * `JsonlLogger`: cli/train writes one record per epoch to
@@ -21,8 +29,9 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import threading
 import time
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -44,9 +53,80 @@ def trace(log_dir: str, rank: int = 0) -> Iterator[str]:
     print(f"profiler trace: {path}")
 
 
-def annotate(name: str):
-    """Named region visible in profiler timelines."""
-    return torch.profiler.record_function(name)
+_NOTHING = contextlib.nullcontext()
+
+
+class Span:
+    """One span of host time: `start_ns` and `end_ns` by time.time_ns(),
+    the Unix clock on which torch.profiler places its events (at the
+    trace's `trace_start_ns()` plus each event's offset). `step` is the
+    training step's (epoch, step in the epoch), taken from the enclosing
+    span where not given; `parent` the span that was open on the same
+    thread when this one opened."""
+
+    __slots__ = ("name", "parent", "step", "thread", "start_ns", "end_ns")
+
+    def __init__(self, name: str, parent: Optional["Span"],
+                 step: Optional[Tuple[int, int]]):
+        self.name, self.parent = name, parent
+        self.step = step if step is not None or parent is None \
+            else parent.step
+        self.thread = threading.get_ident()
+        self.start_ns = time.time_ns()
+        self.end_ns: Optional[int] = None
+
+
+class SpanRecorder:
+    """The spans of a `record_spans()` block, in the order they opened."""
+
+    def __init__(self):
+        self.spans: List[Span] = []
+        self._local = threading.local()  # each thread's open spans
+
+    @contextlib.contextmanager
+    def span(self, name: str, step: Optional[Tuple[int, int]]):
+        """The span, inside the profiler's range of it where one runs."""
+        traced = torch._C._autograd._profiler_enabled()
+        with torch.profiler.record_function(name) if traced else _NOTHING:
+            stack = getattr(self._local, "open", None)
+            if stack is None:
+                stack = self._local.open = []
+            span = Span(name, stack[-1] if stack else None, step)
+            self.spans.append(span)
+            stack.append(span)
+            try:
+                yield span
+            finally:
+                span.end_ns = time.time_ns()
+                stack.pop()
+
+
+_recorder: Optional[SpanRecorder] = None
+
+
+@contextlib.contextmanager
+def record_spans() -> Iterator[SpanRecorder]:
+    """Keep every span that `annotate` opens within the block; yields
+    the recorder, whose `spans` the caller reads."""
+    global _recorder
+    if _recorder is not None:
+        raise RuntimeError("spans are already being recorded")
+    _recorder = SpanRecorder()
+    try:
+        yield _recorder
+    finally:
+        _recorder = None
+
+
+def annotate(name: str, step: Optional[Tuple[int, int]] = None):
+    """A named span: kept by `record_spans()`, a range in a running
+    profiler's trace, and with neither a shared empty context."""
+    recorder = _recorder
+    if recorder is not None:
+        return recorder.span(name, step)
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NOTHING
 
 
 def _has_nan(value) -> bool:

@@ -296,9 +296,10 @@ def test_train_cli_runs_the_diagnostics(tmp_path, capsys):
                                        "trace_rank0.json")
     names = {e.get("name") for e in json.load(open(
         result["trace_file"]))["traceEvents"]}
-    # the first epoch only: its steps, batch waits, loss reads, eval and
-    # saves
-    for region in ("train_step", "data_wait", "loss_read", "eval",
+    # the first epoch only: its steps and their phases, batch waits, loss
+    # reads, eval and saves
+    for region in ("train_step", "augment", "forward", "backward",
+                   "optimizer", "data_wait", "loss_read", "eval",
                    "eval_batch", "checkpoint"):
         assert region in names, region
     cfg = parse_config(["--model-remat", "true"])
