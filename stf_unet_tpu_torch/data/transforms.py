@@ -161,6 +161,16 @@ def _sample_params(gen: torch.Generator, min_size: int, max_size: int,
     return scale, res_h, res_w, hflip, vflip, angle, y0, x0
 
 
+def _to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on `device`: to a CUDA device through pinned memory,
+    without blocking the host (a copy from pageable memory synchronizes
+    the stream); elsewhere as t.to(device)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _build_affine(scale, res_h, res_w, hflip, vflip, angle, y0, x0):
     """A function mapping output pixel-centre coordinates (py, px) to
     source coordinates (gy, gx): the inverse of resize(scale) -> hflip ->
@@ -287,7 +297,11 @@ class TrainAugment:
             rows=self._rows(sizes.shape[0]))
 
     def _affine(self, params, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        params = [p.to(device).view(-1, 1, 1) for p in params]
+        # the eight [B] draws in one copy, the flips as 0 / 1
+        moved = _to_device(torch.stack([p.to(torch.float32)
+                                        for p in params]), device)
+        params = list(moved.view(len(params), -1, 1, 1).unbind(0))
+        params[3:5] = [p != 0 for p in params[3:5]]  # hflip, vflip
         line = torch.arange(self.crop, dtype=torch.float32, device=device)
         return _build_affine(*params)(line.view(-1, 1), line.view(1, -1))
 
@@ -310,20 +324,20 @@ class TrainAugment:
                                 generator=gen)[mine] * self.cfg.elastic_alpha
             on = (torch.rand((total,), generator=gen)[mine]
                   < self.cfg.elastic_prob).to(torch.float32)
-            dy, dx = elastic_offsets(field.to(device), on.to(device),
-                                     self.crop)
+            dy, dx = elastic_offsets(_to_device(field, device),
+                                     _to_device(on, device), self.crop)
             gy, gx = gy + dy, gx + dx
         return gy, gx
 
     def _photometric_draws(self, gen: torch.Generator, bsz: int, device):
         """The jitter's factors [3, B] (each U(1-k, 1+k) for brightness,
-        contrast, gamma) and, with noise, a generator on `device` seeded
-        from `gen`."""
+        contrast, gamma) on `device` and, with noise, a generator there
+        seeded from `gen`."""
         first, total = self._rows(bsz)
         u = torch.rand((3, total), generator=gen)[:, first:first + bsz]
         k = torch.tensor([self.cfg.brightness, self.cfg.contrast,
                           self.cfg.gamma_jitter]).view(3, 1)
-        factors = 1.0 - k + 2.0 * k * u
+        factors = _to_device(1.0 - k + 2.0 * k * u, device)
         noise_gen = None
         if self.cfg.noise_std > 0.0:
             seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
@@ -344,7 +358,8 @@ class TrainAugment:
         one of frame 0."""
         bsz, t = frames.shape[:2]
         planes = [frames] if pk is None else [frames, pk]
-        valid = torch.as_tensor(sizes).to(frames.device, torch.float32)
+        valid = _to_device(torch.as_tensor(sizes).to(torch.float32),
+                           frames.device)
         if self.cfg.shared_frame_augmentation:
             gy, gx = self.grids(gen, sizes, frames.device)
             stacked = torch.cat(planes + [masks.unsqueeze(1)], dim=1)

@@ -7,9 +7,15 @@ side stream with device prefetch), the augmentation warps it there
 (kernel K2), the model runs in train mode
 (pixel LSTMs through K1 / K1b at C <= 128 on CUDA), then the CE + dice
 criterion, backward, and the AdamW apply at the schedule's lr (once per
-accumulation window, then the EMA update; train/state.py). The loss of
-step s is read on the host while step s+1 runs, so the host does not wait
-for the card every step.
+accumulation window, then the EMA update; train/state.py). On CUDA,
+train_one_epoch's steps replay that device work as one captured CUDA
+graph (train/step_graph.py says where, and what runs eagerly instead).
+No step synchronizes the stream: the augmentation's host draws go to the
+card through pinned memory, and each step's loss is copied to pinned
+host memory behind the step, with an event. The host reads step s's
+loss once step s+1 is queued, waiting for that event alone, so it stays
+a step ahead of the card and waits for it only where it has run a whole
+step ahead.
 
 Under data parallelism (state.group) each rank runs this step on its
 rows of the global batch through the DDP wrapper (the non-final
@@ -27,8 +33,10 @@ and inside it "augment" (the draws, K2, normalize; a prefetched batch is
 freed there, DeviceBatch.tensors), "forward" (model and
 criterion), "backward" (the autograd engine's dispatch, which the calling
 thread waits out) and "optimizer" (the loss all-reduce under a group, the
-lr, the AdamW apply and the EMA update), then "loss_read" (the step's
-loss brought to the host, one step late); evaluate marks "eval_batch",
+lr, the AdamW apply and the EMA update), or in their place "replay" (the
+batch into the graph's buffers, the replay, the loss's copy and the EMA
+update), then "loss_read" (the wait for the step's loss on the host, one
+step late); evaluate marks "eval_batch",
 and cli/train adds "eval" and "checkpoint". With the NaN check on
 (state.nan_check) a NaN in the loss raises before the backward, which
 runs in anomaly mode.
@@ -62,6 +70,7 @@ from stf_unet_tpu_torch.metrics.dice import (eval_dice_update,
 from stf_unet_tpu_torch.metrics.meters import MetricLogger, SmoothedValue
 from stf_unet_tpu_torch.models.registry import preprocess_input
 from stf_unet_tpu_torch.parallel import spatial
+from stf_unet_tpu_torch.train import step_graph
 from stf_unet_tpu_torch.train.state import TrainState
 from stf_unet_tpu_torch.utils.profiling import annotate
 
@@ -163,21 +172,50 @@ def train_step(state: TrainState, augment: TrainAugment,
                batch: Union[Batch, DeviceBatch], gen: torch.Generator,
                schedule: Callable[[int], float], num_classes: int,
                device: torch.device,
-               loss_weight: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, float]:
+               loss_weight: Optional[torch.Tensor] = None, *,
+               graph: bool = False) -> Tuple[torch.Tensor, float]:
     """One micro-step on a host (or already copied) batch: augment,
     forward, backward into the accumulated gradients; on the last
     micro-step of each accumulation window the AdamW apply at the
-    window's lr, on the mean gradient, then the EMA update. Returns (loss
-    on the device, the window's lr)."""
+    window's lr, on the mean gradient, then the EMA update. With `graph`
+    (train_one_epoch's steps) the step's device work runs as a captured
+    CUDA graph where train/step_graph.mode allows. Returns (loss on the
+    device, the window's lr). train_step.eager_steps, .captures and
+    .replays count how the steps ran (a captured step also replays)."""
     if not isinstance(batch, DeviceBatch):
         batch = batch_to_device(batch, device)
     with annotate("augment"):
         frames, masks, pk = batch.tensors()
         images, targets = augment(gen, frames, masks, batch.sizes, pk)
         del frames, masks, pk  # a handed-over batch is freed here
+    lr = schedule(state.step // state.grad_accum)
+    how = "eager"
+    if graph:
+        sig = step_graph.signature(images, targets, num_classes,
+                                   loss_weight)
+        how = step_graph.mode(state, device, sig)
+        state.last_signature = sig
+    if how in ("capture", "replay"):
+        return _replay(state, how == "capture", sig, images, targets, lr,
+                       num_classes, loss_weight), lr
+
+    def eager():
+        return _eager_step(state, images, targets, lr, num_classes,
+                           loss_weight)
+
+    if how == "warm":
+        loss = step_graph.warm(eager, (images, targets))
+    else:
+        loss = eager()
+    _COUNTS.eager_steps += 1
+    return loss, lr
+
+
+def _eager_step(state: TrainState, images: torch.Tensor,
+                targets: torch.Tensor, lr: float, num_classes: int,
+                loss_weight: Optional[torch.Tensor]) -> torch.Tensor:
+    """train_step's device work, op by op; the loss."""
     k = state.grad_accum
-    lr = schedule(state.step // k)
     if state.step % k == 0:
         state.optimizer.zero_grad(set_to_none=True)
     # the window's last micro-step all-reduces the summed gradients
@@ -207,7 +245,41 @@ def train_step(state: TrainState, augment: TrainAugment,
                                      if p.grad is not None], float(k))
             state.optimizer.step()
             state.update_ema()
-    return loss.detach(), lr
+    return loss.detach()
+
+
+def _replay(state: TrainState, capture: bool, sig: tuple,
+            images: torch.Tensor, targets: torch.Tensor, lr: float,
+            num_classes: int,
+            loss_weight: Optional[torch.Tensor]) -> torch.Tensor:
+    """train_step's device work as a replay of the state's graph,
+    captured first if `capture`; the loss (a copy)."""
+    if capture:
+        state.step_graph = None  # a graph it replaces, and its pool, go
+        held = step_graph.StepGraph(sig, images, targets, loss_weight,
+                                    state.optimizer.state)
+
+        def step(x, y):
+            loss = loss_and_grads(state.model, x, y, num_classes,
+                                  loss_weight=loss_weight)
+            state.optimizer.step()
+            return loss
+
+        held.capture(state.optimizer, step, lr)
+        state.step_graph = held
+        _COUNTS.captures += 1
+    with annotate("replay"):
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        loss = state.step_graph.replay(images, targets, lr)
+        state.step += 1
+        state.update_ema()
+    _COUNTS.replays += 1
+    return loss
+
+
+train_step.eager_steps = train_step.captures = train_step.replays = 0
+_COUNTS = train_step  # the counters' holder, also while a caller wraps it
 
 
 def train_one_epoch(state: TrainState, loader: HostLoader,
@@ -224,10 +296,12 @@ def train_one_epoch(state: TrainState, loader: HostLoader,
     the epoch after a preemption: its first batches are skipped
     undecoded and the draws continue from that index, as if never
     interrupted. should_stop (train/preempt.py) is polled after every
-    step; device_prefetch batches are copied ahead (device_batches)."""
+    step; device_prefetch batches are copied ahead (device_batches). The
+    steps replay a captured CUDA graph where train/step_graph.mode
+    allows."""
     logger = MetricLogger(delimiter="  ")
     logger.add_meter("lr", SmoothedValue(window_size=1, fmt="{value:.6f}"))
-    pending = None  # the previous step's (loss, lr, step), read one late
+    pending = None  # the previous step's LossRead, read one step late
     step = start_step
     total = len(loader) - start_step
     batches = _waited(lambda: device_batches(
@@ -238,15 +312,17 @@ def train_one_epoch(state: TrainState, loader: HostLoader,
         with annotate("train_step", (epoch, step)):
             loss, lr = train_step(state, augment, batch,
                                   augment_generator(seed, epoch, step),
-                                  schedule, num_classes, device, loss_weight)
+                                  schedule, num_classes, device, loss_weight,
+                                  graph=True)
+        read = LossRead(loss, lr, (epoch, step))
         if pending is not None:
-            _read_loss(logger, *pending)
-        pending = (loss, lr, (epoch, step))
+            _read_loss(logger, pending)
+        pending = read
         step += 1
         if should_stop is not None and should_stop():
             break
     if pending is not None:
-        _read_loss(logger, *pending)
+        _read_loss(logger, pending)
     last_lr = logger.meters["lr"].value if step > start_step else 0.0
     return logger.meters["loss"].global_avg, float(last_lr), step
 
@@ -276,11 +352,33 @@ def _waited(make: Callable[[], Iterable], epoch: int, first: int,
 _END = object()
 
 
-def _read_loss(logger: MetricLogger, loss: torch.Tensor, lr: float,
-               step: Tuple[int, int]) -> None:
-    """A step's loss brought to the host: a "loss_read" span of it."""
-    with annotate("loss_read", step):
-        logger.update(loss=loss.item(), lr=lr)
+class LossRead:
+    """A step's loss on its way to the host: from a CUDA device a copy
+    into pinned host memory, queued behind the step, and an event after
+    it; a CPU loss as it is."""
+
+    def __init__(self, loss: torch.Tensor, lr: float,
+                 step: Tuple[int, int]):
+        self.lr, self.step = lr, step
+        self.host, self.ready = loss, None
+        if loss.device.type == "cuda":
+            self.host = torch.empty(loss.shape, dtype=loss.dtype,
+                                    pin_memory=True)
+            self.host.copy_(loss, non_blocking=True)
+            self.ready = torch.cuda.Event()
+            self.ready.record(torch.cuda.current_stream(loss.device))
+
+
+def _read_loss(logger: MetricLogger, read: LossRead) -> float:
+    """A step's loss on the host, waiting for its copy alone (`.item()`
+    on the device would wait for every step queued behind it): a
+    "loss_read" span of it. Returns the loss."""
+    with annotate("loss_read", read.step):
+        if read.ready is not None:
+            read.ready.synchronize()
+        value = read.host.item()
+        logger.update(loss=value, lr=read.lr)
+    return value
 
 
 @torch.inference_mode()

@@ -14,6 +14,10 @@ weight decay, one moment update). The window runs on the global
 micro-step count, so it carries across an epoch boundary. BN and the
 dice term see each microbatch on its own.
 
+On CUDA, train_one_epoch's steps replay one captured CUDA graph
+(train/step_graph.py, `step_graph`): the fused AdamW's groups are then
+marked capturable and read the lr from a device tensor.
+
 EMA (`ema`, parameter name -> tensor; None = off) covers the parameters
 only: ema = d * ema + (1 - d) * param after each apply, with the warmup
 ramp d = min(decay, (1 + n) / (10 + n)) over the apply index n. The BN
@@ -91,6 +95,10 @@ class TrainState:
     ddp: Optional[nn.Module] = None
     # utils/profiling.NanCheck under --nan-check, else None
     nan_check: Any = None
+    # the captured training step (train/step_graph.StepGraph) and the
+    # signature of train_one_epoch's previous step (train/loop)
+    step_graph: Any = None
+    last_signature: Optional[tuple] = None
 
     def update_ema(self) -> None:
         """Advance the EMA after an apply (the JAX train step's update)."""
