@@ -118,7 +118,11 @@ def checkpoint_path(model_dir: str, model_name: str,
 
 # The classifier head of each model: its output channels are the class
 # count.
-_HEADS = {"stflstm": "final.weight", "unet": "out_conv.weight"}
+_HEADS = {"stflstm": "final.weight", "unet": "out_conv.weight",
+          "swinunet": "output.weight"}
+# The first layer of each model that takes the T frames (+ PK maps) as
+# input channels.
+_STEMS = {"unet": "enc1.0.weight", "swinunet": "patch_embed.proj.weight"}
 
 
 def restore_for_inference(model_name: str, weights: str, *,
@@ -135,9 +139,10 @@ def restore_for_inference(model_name: str, weights: str, *,
     `device`.
 
     The architecture comes from the weights: the class count from the
-    head (`final` / `out_conv`), the UNet's width from enc1's output
-    channels, the PK maps from the pk_fusion convs (STF-LSTM-UNet) or
-    from enc1's input channels, T + 3 (UNet). Crop size, base size, mean,
+    head (`final` / `out_conv` / `output`), the UNet's width from enc1's
+    output channels, the PK maps from the pk_fusion convs
+    (STF-LSTM-UNet) or from the first layer's input channels, T + 3
+    (UNet's enc1, Swin-UNet's patch embedding). Crop size, base size, mean,
     std and mask format come from the checkpoint's training config where
     it has one (defaults otherwise). Explicit arguments win. The sequence
     selection (`use_subtraction`) and `use_pk_maps` pick the inputs (and,
@@ -159,11 +164,12 @@ def restore_for_inference(model_name: str, weights: str, *,
             settings[key] = value
     time_steps = len(DataConfig(
         use_subtraction=use_subtraction).resolved_sequence_types)
-    if model_name == "unet":
-        width, in_ch = (int(n) for n in sd["enc1.0.weight"].shape[:2])
+    if model_name in _STEMS:
+        width, in_ch = (int(n) for n in sd[_STEMS[model_name]].shape[:2])
         pk_channels = in_ch - time_steps
         weights_pk = pk_channels > 0
-        base_c = width if base_c is None else base_c
+        if model_name == "unet" and base_c is None:
+            base_c = width
     else:
         weights_pk = any(k.startswith("pk_fusion") for k in sd)
         pk_channels = int(sd["conv1.weight"].shape[1]) - 1

@@ -64,7 +64,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "volume ('frames' uint8 [T, H, W]), or a directory "
                         "of .npz volumes")
     p.add_argument("--model", type=str, default="unet",
-                   choices=["unet", "stflstm"])
+                   choices=["unet", "stflstm", "swinunet"])
     p.add_argument("--model-dir", type=str, default="./save_weights")
     p.add_argument("--output-dir", type=str, default="./output/predictions")
     p.add_argument("--use-subtraction", action="store_true")

@@ -43,7 +43,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         description="STF-UNet int8 post-training quantization (PyTorch "
                     "port)")
     p.add_argument("--model", type=str, default="unet",
-                   choices=["unet", "stflstm"])
+                   choices=["unet", "stflstm", "swinunet"])
     p.add_argument("--model-dir", type=str, default="./save_weights")
     p.add_argument("--root", type=str, default="./BreaDM")
     p.add_argument("--use-subtraction", action="store_true")
@@ -76,7 +76,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "the printed delta is serve-bf16 vs serve-int8)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' only when asked for")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    try:
+        quant.require_int8_model(args.model)
+    except ValueError as e:
+        p.error(str(e))
+    return args
 
 
 def _best_point(metrics: dict) -> dict:

@@ -55,7 +55,7 @@ from stf_unet_tpu_torch.serve.http import SegmentationServer
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="STF-UNet serving on the GPU")
     p.add_argument("--model", type=str, default="stflstm",
-                   choices=["stflstm", "unet"])
+                   choices=["stflstm", "unet", "swinunet"])
     p.add_argument("--model-dir", type=str, default=None,
                    help="cli/train save directory: serve its best, else "
                         "latest checkpoint")
@@ -109,6 +109,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if (args.weights is None) == (args.model_dir is None):
         p.error("give one of --weights (a .pth file) or --model-dir (a "
                 "cli/train save directory)")
+    if args.dtype == "int8":
+        from stf_unet_tpu_torch.ops import quant
+        try:
+            quant.require_int8_model(args.model)
+        except ValueError as e:
+            p.error(str(e))
     return args
 
 

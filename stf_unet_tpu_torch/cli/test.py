@@ -59,7 +59,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="STF-UNet inference (PyTorch "
                                 "port)")
     p.add_argument("--model", type=str, default="unet",
-                   choices=["unet", "stflstm"])
+                   choices=["unet", "stflstm", "swinunet"])
     p.add_argument("--model-dir", type=str, default="./save_weights")
     p.add_argument("--root", type=str, default="./BreaDM")
     p.add_argument("--output-dir", type=str, default="./output/test_results")

@@ -2,7 +2,8 @@
 ref:train.py:124-401).
 
     python -m stf_unet_tpu_torch.cli.train --data-path <BreaDM root> \\
-        [--model stflstm|unet [--model-base-c 64]] [--amp true] \\
+        [--model stflstm|unet|swinunet [--model-base-c 64]] \\
+        [--drop-path-rate P] [--amp true] \\
         [--batch-size 16|auto [--auto-batch-budget-gb G]] [--epochs 100] \\
         [--use-subtraction --use-pk-maps [--generate-pk-maps]] \\
         [--grad-accum K] [--optim-ema-decay D [--optim-ema-warmup B]] \\
@@ -25,6 +26,9 @@ prediction render per test slice to <output_dir>/test_results<_pk>.
 SIGTERM, a first SIGINT or --stop-after-steps end the run at the next
 step with a resumable checkpoint (train/preempt.py). CUDA unless
 --device cpu.
+
+Swin-UNet (--model swinunet, models/swin_unet.py) takes --drop-path-rate,
+its stochastic depth (0 by default); --spatial-parallel refuses it.
 
 Diagnostics, as the JAX trainer has them: --model-remat recomputes the
 STF model's encoder in the backward (models/stf_lstm_unet.py);
@@ -212,6 +216,11 @@ def _spatial_main(cfg: TrainConfig, device) -> dict:
     if cfg.multihost:
         raise SystemExit("error: --spatial-parallel is single-process "
                          "only (use --data-parallel across hosts)")
+    if cfg.model.model == "swinunet":
+        raise SystemExit("error: --spatial-parallel shards the image rows "
+                         "of convolutions, pools and resizes; swinunet's "
+                         "window attention and patch merge / expand have no "
+                         "row-sharded path")
     if cfg.batch_size == 0:
         # The probe measures the single-device step; H-sharding divides
         # the activations by n_space, which the linear-in-batch model

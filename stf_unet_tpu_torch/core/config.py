@@ -98,8 +98,12 @@ class ModelConfig:
     lstm_backend: str = "auto"
     base_c: int = 64  # vanilla UNet width (ref:src/unet.py:7)
     # Recompute the STF model's encoder in the backward instead of keeping
-    # its activations (models/stf_lstm_unet.py; the UNet ignores it).
+    # its activations (models/stf_lstm_unet.py; the other models ignore
+    # it).
     remat: bool = False
+    # Swin-UNet's stochastic depth, spread linearly over its encoder's
+    # blocks (models/swin_unet.py; the published recipe trains at 0.2).
+    drop_path_rate: float = 0.0
 
     @property
     def total_classes(self) -> int:
@@ -329,6 +333,7 @@ def parse_config(argv: Optional[Sequence[str]] = None,
         "--use-pk-maps": ("data_use_pk_maps", _parse_bool),
         "--use-subtraction": ("data_use_subtraction", _parse_bool),
         "--data-pack": ("data_pack_dir", str),
+        "--drop-path-rate": ("model_drop_path_rate", float),
         "--tf32": ("matmul_precision_fast", _parse_bool),
     }
     for flag, (dest, typ) in alias.items():

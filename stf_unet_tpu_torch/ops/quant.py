@@ -77,6 +77,27 @@ _EPS = 1e-8
 # torch._int_mm on CUDA takes M > 16 rows: smaller patch matrices are
 # padded with zero rows up to this.
 _MIN_GEMM_ROWS = 32
+# The models whose compute the int8 convolutions carry. Swin-UNet computes
+# in Linear layers (window attention, MLPs, patch merge and expand), which
+# have no int8 path: it is served in bfloat16 or float32.
+INT8_MODELS = ("unet", "stflstm")
+_NO_LINEARS = (f"int8 quantization covers the convolutions of "
+               f"{' and '.join(INT8_MODELS)}; {{}} computes in Linear "
+               "layers, which have no int8 path (serve it with --dtype "
+               "bf16 or f32)")
+
+
+def require_int8_model(model_name: str) -> None:
+    """Raise ValueError, naming the reason, for a model that int8 cannot
+    serve (cli/quantize and cli/serve --dtype int8 refuse it at their
+    start)."""
+    if model_name not in INT8_MODELS:
+        raise ValueError(_NO_LINEARS.format(model_name))
+
+
+def _require_conv_model(model: nn.Module) -> None:
+    if any(isinstance(m, nn.Linear) for m in model.modules()):
+        raise ValueError(_NO_LINEARS.format(type(model).__name__))
 
 
 def quantize_kernel(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -153,7 +174,9 @@ def calibrate(model: nn.Module, inputs: Iterable[torch.Tensor]
     in model input form: normalized, preprocess_input applied) and return
     {conv name: input absmax}, maxed over all inputs; the absmax is taken
     in the compute dtype, as the JAX package's interceptor takes it.
-    Forward pre-hooks record it, so the convs run their float forward."""
+    Forward pre-hooks record it, so the convs run their float forward.
+    A model with Linear layers (Swin-UNet) raises ValueError."""
+    _require_conv_model(model)
     model.eval()
     stats: Dict[str, torch.Tensor] = {}
 
@@ -219,10 +242,12 @@ class QuantizedModel(nn.Module):
     """Drop-in model wrapper: forward runs the wrapped float model with
     its convs in `scales` (module name -> absmax) on the int8 path; names
     in `exclude` (exact match) keep the float path. `input_format` and
-    `num_classes` are the wrapped model's."""
+    `num_classes` are the wrapped model's. A model with Linear layers
+    (Swin-UNet) raises ValueError."""
 
     def __init__(self, model: nn.Module, scales: Mapping[str, float],
                  exclude: Sequence[str] = ()):
+        _require_conv_model(model)
         super().__init__()
         self.model = model
         self.input_format = getattr(model, "input_format", "time_sequence")

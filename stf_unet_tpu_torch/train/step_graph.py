@@ -32,8 +32,8 @@ One graph is held (TrainState.step_graph): capturing another signature
 drops it, a signature met in no two steps in a row (an epoch's ragged
 last batch) runs warm beside it, and an optimizer whose state was
 replaced (load_state_dict) is captured again. `LaunchDelta` keeps the
-kernels' launch counters (`.launches`, ops/kernels) counting what each
-replay launches.
+kernels' launch counters (`.launches`, ops/kernels and
+ops/window_attention) counting what each replay launches.
 """
 
 from __future__ import annotations
@@ -47,7 +47,8 @@ _SIDE: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
 def counted_kernels() -> List[Callable]:
-    """The hand-written kernels' wrappers, each counting its launches."""
+    """The hand-written kernels' wrappers and the window-attention op,
+    each counting its launches (calls)."""
     from stf_unet_tpu_torch.ops.kernels.lstm_last import lstm_last
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x import lstm_last_x
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x_bwd import \
@@ -56,9 +57,10 @@ def counted_kernels() -> List[Callable]:
                                                       quantize_patches)
     from stf_unet_tpu_torch.ops.kernels.tofts import tofts_sums
     from stf_unet_tpu_torch.ops.kernels.warp import warp
+    from stf_unet_tpu_torch.ops.window_attention import window_attention
 
     return [lstm_last_x, lstm_last_x_bwd, lstm_last, warp, tofts_sums,
-            quantize_patches, dequant_epilogue]
+            quantize_patches, dequant_epilogue, window_attention]
 
 
 class LaunchDelta:
