@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the repository root
 
 Phases, each of which fails the run (non-zero exit, no result line):
-  1. card: print the GPU's name and power limit; build the seven CUDA
+  1. card: print the GPU's name and power limit; build the eight CUDA
      kernels from csrc/ with nvcc, in parallel, and print the build seconds.
   2. kernels: each kernel against its plain PyTorch version on the card.
      K1 forward and K3 at every row count the serving and training paths
@@ -51,7 +51,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      F.conv2d of the same integers; and K6 (the dequant epilogue) on
      those real accumulators of every call, bit-equal to its plain twin
      in bf16 and f32, with and without bias. Kernel, plain and (K5)
-     library-route times and the byte bounds, summed per forward.
+     library-route times and the byte bounds, summed per forward. Then
+     K7 (train-mode BatchNorm, ops/kernels/batch_norm.py) forward and
+     backward at every distinct BN input shape of the STF-LSTM-UNet and
+     the UNet at B=16, crop 224 (14 shapes), bf16, NCHW and
+     channels-last, against its plain twins in float64, bit-identical
+     over two runs; and at the stem (128 x 64 x 112^2) and layer3 (128 x
+     256 x 14^2) shapes one `bn` line each with its device ms
+     (torch.profiler, the bn_ kernels), the byte floor (10 bytes an
+     element) and the design's 16, the plain twin's ms and
+     F.batch_norm's forward + backward ms (events).
   3. serving: a seeded full-width STF-LSTM-UNet (ResNet-34, pixel LSTMs at
      C=64..512, T=8, crop 224, bf16) written as a reference-layout .pth,
      served through cli/serve.build_server on 127.0.0.1, answering
@@ -67,8 +76,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      256^2 (64 training slices), cli/train at full width (bf16, batch 16,
      crop 224) for 3 epochs = 12 steps with evaluation and latest/best
      checkpoints; every loss finite and every training kernel launched
-     during this phase.
-  7. steps: the loss of repeated steps on one fixed batch falls; ms per
+     during this phase, K7 3 + 3 times for each BN call of each step.
+  7. steps: the loss of repeated steps on one fixed batch falls (K7
+     launched 3 + 3 times a BN call a step); ms per
      step, samples/s, the device's idle share and a torch.profiler view of
      one step (with the port's kernels by name).
   8. training path against plain path: one f32 step through the kernels
@@ -76,7 +86,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
   9. UNet training: cli/train --model unet (the vanilla UNet at full
      width, base_c = 64, T = 8 frames as channels; bf16, batch 16, crop
      224, 3 epochs = 12 steps) on the same tree: every loss finite, K2
-     launched (Cs = 9), and one comparison render per test record.
+     launched (Cs = 9), K7 3 + 3 times a BN call a step, and one
+     comparison render per test record.
  10. UNet steps: phase 7 on the UNet, with its step's convolution FLOPs
      (3.555 TFLOP at batch 16, counted from the layers' shapes by
      utils/benchkit.forward_flops) against the card's dense bf16 peak.
@@ -1306,6 +1317,83 @@ def tofts_edge_check(device) -> None:
     print(json.dumps(line), flush=True)
 
 
+# K7 is timed at the STF-LSTM-UNet's stem and layer3 BNs (B*T = 128
+# frames at crop 224): the widest plane and a small one.
+BN_TIMED = {"stem": (128, 64, 112, 112), "layer3": (128, 256, 14, 14)}
+
+
+def bn_phase(device, quick: bool) -> dict:
+    """K7 forward + backward at every distinct BN input shape of both CNN
+    cells (B = 16, crop 224; ops/kernels/batch_norm.bn_input_shapes), in
+    bf16, NCHW and channels-last, against its plain twins computed in
+    float64 on the card, a rerun bit-identical (batch_norm.twin_excess,
+    which the card tests run too): one `bn` line each with its tiling.
+    Then, unless quick, at the BN_TIMED shapes in both layouts: K7's
+    device ms by torch.profiler (its bn_ kernels over 20 calls), its
+    events ms, the byte floor (x read and y written forward, x and dy
+    read and dx written backward: 10 bytes an element in bf16) and the
+    design's count (16), the plain twin's ms and F.batch_norm's train
+    forward + backward ms (events). Returns the kernel's summary."""
+    import torch
+    import torch.nn.functional as F
+
+    from stf_unet_tpu_torch.ops.kernels import batch_norm as bn
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    shapes = sorted(set(bn.bn_input_shapes("stflstm")
+                        + bn.bn_input_shapes("unet")))
+    worst = {}
+    for shape in shapes:
+        for cl in (False, True):
+            excess = bn.twin_excess(shape, torch.bfloat16, cl, device)
+            t = bn.tiling(*shape[:2], shape[2] * shape[3], 2, cl, 16, sms)
+            print(json.dumps({"bn": {
+                "kernel": "batch_norm", "dims": list(shape),
+                "channels_last": cl, "tiling": t._asdict(),
+                "excess": excess}}), flush=True)
+            bad = {k: v for k, v in excess.items() if v > 0}
+            check(not bad, f"K7 at {shape} (channels_last={cl}) against "
+                           f"its plain twins: {bad}")
+            for k, v in excess.items():
+                worst[k] = max(worst.get(k, v), v)
+    summary = {"checked": {"shapes": len(shapes), "layouts": 2,
+                           "dtype": "bf16"}, "worst_excess": worst}
+    if quick:
+        return summary
+    timed = {}
+    for label, shape in BN_TIMED.items():
+        for cl in (False, True):
+            x, dy, w, b, (rm, rv) = bn.twin_case(shape, torch.bfloat16, cl,
+                                                 device)
+
+            def k7():
+                yy, mm, ii = bn.batch_norm_forward(x, w, b, rm, rv)
+                bn.batch_norm_backward(dy, x, w, mm, ii)
+
+            def plain():
+                yy, mm, ii = bn.batch_norm_forward_plain(x, w, b, rm, rv)
+                bn.batch_norm_backward_plain(dy, x, w, mm, ii)
+
+            xs, ws, bs = (v.detach().clone().requires_grad_()
+                          for v in (x, w, b))
+
+            def library():
+                F.batch_norm(xs, rm, rv, ws, bs, True).backward(dy)
+
+            line = {"kernel": "batch_norm", "shape": label,
+                    "dims": list(shape), "channels_last": cl,
+                    "device_ms": profiled_ms(k7, 20, "bn_"),
+                    "library_device_ms": profiled_ms(library, 20,
+                                                     "batch_norm"),
+                    "ms": cuda_ms(k7), "plain_ms": cuda_ms(plain, iters=5),
+                    "library_ms": cuda_ms(library),
+                    "floor_ms": bound_ms(10 * x.numel(), 0, "bf16")[0],
+                    "design_ms": bound_ms(16 * x.numel(), 0, "bf16")[0]}
+            print(json.dumps({"bn": line}), flush=True)
+            timed[f"{label}{'_channels_last' if cl else ''}"] = line
+    return {**summary, "timed": timed}
+
+
 def serving_phase(tmpdir: str):
     import torch
 
@@ -1478,6 +1566,9 @@ TRAIN_PATIENTS, TRAIN_SLICES = 8, 8   # 64 training slices
 EVAL_PATIENTS = 2                     # x TRAIN_SLICES val / test slices
 TRAIN_BATCH, TRAIN_EPOCHS = 16, 3
 TRAIN_KERNELS = ("lstm_last_x", "lstm_last_x_bwd", "warp", "lstm_last")
+# K7's wrappers: a train-mode BN without a data group launches 3 of each
+# a training forward and backward (a synced BN launches none)
+BN_KERNELS = ("batch_norm_forward", "batch_norm_backward")
 FIXED_STEPS = 8      # repeated steps on one fixed batch: the loss must fall
 TIMED_STEPS = 10     # back-to-back steps for ms/step and the idle share
 # Kernel path against plain path, one training step at full width, B=4:
@@ -1506,6 +1597,8 @@ PATH_ERR_FLOOR = 1e-2
 
 
 def counters():
+    from stf_unet_tpu_torch.ops.kernels.batch_norm import (
+        batch_norm_backward, batch_norm_forward)
     from stf_unet_tpu_torch.ops.kernels.lstm_last import lstm_last
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x import lstm_last_x
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x_bwd import (
@@ -1518,7 +1611,23 @@ def counters():
     return {"lstm_last_x": lstm_last_x, "lstm_last": lstm_last,
             "lstm_last_x_bwd": lstm_last_x_bwd, "warp": warp,
             "tofts_sums": tofts_sums, "quant_patches": quantize_patches,
-            "quant_epilogue": dequant_epilogue}
+            "quant_epilogue": dequant_epilogue,
+            "batch_norm_forward": batch_norm_forward,
+            "batch_norm_backward": batch_norm_backward}
+
+
+def check_bn_launches(label: str, launches: dict, model: str,
+                      steps: int) -> None:
+    """K7's launches over `steps` training steps of `model` at any batch
+    (each a forward and a backward): 3 forward and 3 backward for each of
+    its BN calls a forward."""
+    from stf_unet_tpu_torch.ops.kernels.batch_norm import bn_input_shapes
+
+    want = 3 * len(bn_input_shapes(model)) * steps
+    got = tuple(launches[name] for name in BN_KERNELS)
+    check(got == (want, want), f"{label}: K7 launched {got} (forward, "
+                               f"backward) in {steps} steps, expected "
+                               f"{want} each")
 
 
 def reset_counts() -> dict:
@@ -1581,6 +1690,8 @@ def training_phase(tmpdir: str, data: str, device: str = "cuda"):
     for name in TRAIN_KERNELS:
         check(launches[name] > 0, f"kernel {name} never launched while "
                                   f"training")
+    check_bn_launches("cli/train (STF)", launches, "stflstm",
+                      result["steps"])
     print(json.dumps({"training": {
         "wall_s": wall, "epochs": result["epochs"],
         "steps": result["steps"], "best_dice": result["best_dice"],
@@ -1639,6 +1750,7 @@ def step_phase(data: str, device: str = "cuda", pk: bool = False,
                                          TRAIN_BATCH, pk=pk,
                                          model_name=model_name)
     dev = torch.device(device)
+    counted = reset_counts()
 
     def step():
         return train_step(state, augment, host,
@@ -1664,6 +1776,9 @@ def step_phase(data: str, device: str = "cuda", pk: bool = False,
         t0 = time.perf_counter()
         step().item()
         prof_ms = (time.perf_counter() - t0) * 1e3
+    check_bn_launches(f"train steps ({model_name}{', PK' if pk else ''})",
+                      _launches(counted), model_name,
+                      FIXED_STEPS + TIMED_STEPS + 1)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
 
@@ -1712,9 +1827,10 @@ def step_phase(data: str, device: str = "cuda", pk: bool = False,
 
 def train_path_phase(data: str, device: str = "cuda"):
     """One training step at full width through the kernels (f32) and
-    through the plain path (f32 and float64): same images; loss and
-    gradients of both f32 paths against float64, with the kernels adding
-    no error of their own (see PATH_ERR_RATIO)."""
+    through the plain path (f32, and float64 on the CPU: the card's
+    train-mode BatchNorm, K7, takes bfloat16 and float32): same images;
+    loss and gradients of both f32 paths against float64, with the
+    kernels adding no error of their own (see PATH_ERR_RATIO)."""
     import torch
 
     from stf_unet_tpu_torch.core.config import ModelConfig
@@ -1726,7 +1842,7 @@ def train_path_phase(data: str, device: str = "cuda"):
     state, augment, host = train_objects(data, torch.float32, device,
                                          PATH_BATCH)
     f64 = create_model(ModelConfig(), dtype=torch.float64).to(
-        device, torch.float64)
+        "cpu", torch.float64)
     f64.load_state_dict(state.model.state_dict())
     frames = torch.from_numpy(host.frames).to(device)
     masks = torch.from_numpy(host.masks).to(device)
@@ -1745,9 +1861,11 @@ def train_path_phase(data: str, device: str = "cuda"):
         images, targets = plain_batch if plain else augment(
             augment_generator(0, 0, 0), frames, masks, host.sizes)
         model.zero_grad(set_to_none=True)
-        x = images.double() if model is f64 else images
-        loss = loss_and_grads(model, x, targets, 2).item()
-        grads = {n: p.grad.detach().double()
+        x, y = images, targets
+        if model is f64:
+            x, y = images.to("cpu", torch.float64), targets.cpu()
+        loss = loss_and_grads(model, x, y, 2).item()
+        grads = {n: p.grad.detach().to(device, torch.float64)
                  for n, p in model.named_parameters()}
         runs[label] = (images, targets, loss, grads)
     state.model.set_lstm_backend("auto")
@@ -1853,6 +1971,7 @@ def unet_training_phase(tmpdir: str, data: str, device: str = "cuda"):
           f"UNet: non-finite training loss: {losses}")
     check(launches["warp"] > 0, "kernel warp never launched while training "
                                 "the UNet")
+    check_bn_launches("cli/train (UNet)", launches, "unet", result["steps"])
     for kind in ("latest", "best"):
         path = os.path.join(weights, f"unet_{kind}_model.pth")
         check(os.path.isfile(path), f"no UNet {kind} checkpoint at {path}")
@@ -2126,6 +2245,8 @@ def pk_training_phase(tmpdir: str, data: str):
     for name in TRAIN_KERNELS:
         check(launches[name] > 0, f"kernel {name} never launched while "
                                   f"training on PK maps")
+    check_bn_launches("cli/train --use-pk-maps", launches, "stflstm",
+                      result["steps"])
     best = os.path.join(weights, "stflstm_best_model_pk.pth")
     check(os.path.isfile(best), f"no PK best checkpoint at {best}")
     print(json.dumps({"pk_training": {
@@ -2400,7 +2521,7 @@ def train_extras_phase(tmpdir: str, data: str, device: str = "cuda"):
     torch.cuda.empty_cache()
 
     launches = {name: fn.launches for name, fn in kernels.items()}
-    for name in TRAIN_KERNELS:
+    for name in TRAIN_KERNELS + BN_KERNELS:
         check(launches[name] > 0, f"kernel {name} never launched in "
                                   f"train_extras")
     per_sample = (step_b1 - step_b0) / 2
@@ -3723,6 +3844,9 @@ def data_parallel_phase(tmpdir: str, data: str) -> dict:
     for name in TRAIN_KERNELS:
         check(a["launches"][name] > 0, f"{name} never launched in the "
                                        f"--multihost child")
+    for name in BN_KERNELS:  # the synced BN normalizes without K7
+        check(a["launches"][name] == 0, f"{name} launched in the "
+                                        f"--multihost child")
     print(json.dumps({"data_parallel_multihost": {
         **a, "losses": losses}}), flush=True)
 
@@ -3847,6 +3971,9 @@ def dp_compare(outs, solo: str, controls: dict) -> list:
         for name in TRAIN_KERNELS:
             check(r["launches"][name] > 0, f"{name} never launched in a "
                                            f"gloo rank")
+        for name in BN_KERNELS:
+            check(r["launches"][name] == 0, f"{name} launched in a gloo "
+                                            f"rank (synced BN)")
     return ranks
 
 
@@ -4699,7 +4826,13 @@ TRACE_SYMBOLS = {"lstm_last_x": ("stf::lstm_last_x_kernel",
                                      "stf::lstm_bwd_tile_tc_kernel"),
                  "warp": ("stf::warp_kernel",),
                  "lstm_last": ("stf::lstm_last_kernel",
-                               "stf::lstm_last_tc_kernel")}
+                               "stf::lstm_last_tc_kernel"),
+                 "batch_norm_forward": ("stf::bn_stats_kernel",
+                                        "stf::bn_finish_kernel",
+                                        "stf::bn_apply_kernel"),
+                 "batch_norm_backward": ("stf::bn_bwd_reduce_kernel",
+                                         "stf::bn_bwd_finish_kernel",
+                                         "stf::bn_bwd_dx_kernel")}
 
 
 def remat_phase(data: str, device: str = "cuda") -> dict:
@@ -4754,7 +4887,7 @@ def remat_phase(data: str, device: str = "cuda") -> dict:
           "max")
     check(bufs_equal, "a BN buffer differs after a remat step (updated "
                       "twice?)")
-    for name in ("lstm_last_x", "lstm_last_x_bwd", "warp"):
+    for name in ("lstm_last_x", "lstm_last_x_bwd", "warp") + BN_KERNELS:
         check(launches[name] > 0, f"kernel {name} never launched in the "
                                   f"remat steps")
 
@@ -4900,7 +5033,7 @@ def train_flags_phase(tmpdir: str, data: str, device: str = "cuda"):
     check(trace_file is not None and os.path.isfile(trace_file),
           f"no trace file: {trace_file}")
     summary = _trace_summary(trace_file)
-    for name in ("lstm_last_x", "lstm_last_x_bwd", "warp"):
+    for name in ("lstm_last_x", "lstm_last_x_bwd", "warp") + BN_KERNELS:
         check(summary["kernel_events"][name] > 0,
               f"the trace holds no {name} kernel event")
     trace_vs_counter = {name: {"trace_events": summary["kernel_events"][name],
@@ -5283,6 +5416,7 @@ def main() -> int:
     agg["warp"] = warp_phase(device, args.quick, jobs)
     agg["tofts_sums"] = tofts_phase(device, args.quick, jobs)
     agg.update(quant_phase(device, args.quick))
+    bn_summary = bn_phase(device, args.quick)
     if args.quick:
         print("quick: kernels build and agree with their plain versions")
         return 0
@@ -5396,17 +5530,18 @@ def main() -> int:
     dtypes = {"warp": "uint8 in, f32 out", "tofts_sums": "f32",
               "quant_patches": "bf16 in, int8 out",
               "quant_epilogue": "int32 in, bf16 out"}
+    paths = {"serve": serve_launches, "train": train_launches,
+             "unet_train": unet_launches, "cli_test": cli_launches,
+             "pk": pk_launches, "train_extras": extras_launches, **deploy}
+
+    def by_path(*names):
+        return {path: sum(counts[n] for n in names)
+                for path, counts in paths.items()}
+
     for k in kernels:
         a = agg[k["name"]]
-        by_path = {"serve": serve_launches[k["name"]],
-                   "train": train_launches[k["name"]],
-                   "unet_train": unet_launches[k["name"]],
-                   "cli_test": cli_launches[k["name"]],
-                   "pk": pk_launches[k["name"]],
-                   "train_extras": extras_launches[k["name"]],
-                   **{path: counts[k["name"]]
-                      for path, counts in deploy.items()}}
-        k.update(launches=sum(by_path.values()), launches_by_path=by_path,
+        counts = by_path(k["name"])
+        k.update(launches=sum(counts.values()), launches_by_path=counts,
                  max_abs_err=a["max_abs_err"], ms=a["ms"],
                  plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
                  bound_by=a["bound_by"], library_ms=a["library_ms"],
@@ -5416,6 +5551,13 @@ def main() -> int:
                       "per_forward"):
             if extra in a:
                 k[extra] = a[extra]
+    bn_paths = by_path(*BN_KERNELS)
+    kernels.append({
+        "name": "batch_norm", "route": "cuda",
+        "source": "stf_unet_tpu_torch/csrc/batch_norm.cu",
+        "replaces": "none (the JAX package leaves BatchNorm to XLA)",
+        "launches": sum(bn_paths.values()), "launches_by_path": bn_paths,
+        "dtype": "bf16 / f32 in and out, f32 statistics", **bn_summary})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

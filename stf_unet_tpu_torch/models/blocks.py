@@ -17,6 +17,7 @@ import torch.distributed as dist
 import torch.nn as nn
 
 from stf_unet_tpu_torch.ops.conv import Conv2d, ConvTranspose2d
+from stf_unet_tpu_torch.ops.kernels.batch_norm import batch_norm_train
 from stf_unet_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 # torch convention: running = (1 - momentum)*running + momentum*batch
@@ -34,13 +35,13 @@ class TorchBatchNorm(nn.BatchNorm2d):
     parameters stay float32; a bfloat16 input is normalized and returned
     in bfloat16.
 
-    torch's fused train-mode forward kernels make their update,
+    In training (no data group) the layer runs K7, ops/kernels/
+    batch_norm.batch_norm_train: the hand-written kernels on a CUDA
+    tensor, their plain twin on a CPU one. Its update is F.batch_norm's,
     new = (1 - m) * old + m * unbiased; a correction then gives flax's,
         (1 - m) * old + m * biased = new + ((1 - m) * old - new) / n,
-    a lerp of new toward (1 - m) * old by 1 / n, made on `.data`: the
-    backward keeps the buffer among its inputs (it reads it only in eval
-    mode) and must not see its version move. A layer corrects itself
-    (two small launches) unless its model's forward hooks
+    a lerp of new toward (1 - m) * old by 1 / n, made on `.data`. A layer
+    corrects itself (two small launches) unless its model's forward hooks
     (`batch_running_var_updates`) hold it: then one foreach pass corrects
     every layer of the model after the forward.
 
@@ -70,26 +71,31 @@ class TorchBatchNorm(nn.BatchNorm2d):
             return self._frozen_forward(x)
         if self.data_group is not None:
             return self._synced_forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
         rows = x.numel() // x.shape[1]
         if self.held_rows == 0:
             self.held_rows = rows
-            return super().forward(x)
+            return self._train_forward(x, update=True)
         keep = self.running_var * (1.0 - self.momentum)
-        y = super().forward(x)
+        y = self._train_forward(x, update=True)
         self.running_var.data.lerp_(keep, 1.0 / rows)
         return y
 
+    def _train_forward(self, x: torch.Tensor, update: bool) -> torch.Tensor:
+        return batch_norm_train(
+            x, self.weight, self.bias,
+            self.running_mean if update else None,
+            self.running_var if update else None, self.momentum, self.eps)
+
     def _frozen_forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The train-mode output without a buffer update: nn.BatchNorm2d's
-        own call on copies of the running statistics, so the recompute
+        """The train-mode output without a buffer update, so the recompute
         saves for its backward what the first forward saved."""
         if self.data_group is not None:
             mean, var, n = global_batch_stats(x)
             return _SyncBatchNorm.apply(x, self.weight, self.bias, mean,
                                         var, n, self.eps)
-        return nn.functional.batch_norm(
-            x, self.running_mean.clone(), self.running_var.clone(),
-            self.weight, self.bias, True, self.momentum, self.eps)
+        return self._train_forward(x, update=False)
 
     def _synced_forward(self, x: torch.Tensor) -> torch.Tensor:
         mean, var, n = global_batch_stats(x)
@@ -197,6 +203,28 @@ def convert_sync_batchnorm(model: nn.Module, group) -> nn.Module:
         if isinstance(m, TorchBatchNorm):
             m.data_group = group
     return model
+
+
+def check_k7_dtypes(model: nn.Module, device=None) -> None:
+    """Raise before a step runs where a train-mode TorchBatchNorm of
+    `model` would reach K7 (no data group, on a CUDA device: its weight's
+    or `device`) with what K7 refuses: a compute dtype (the model's
+    `compute_dtype`) other than bfloat16 or float32, or parameters other
+    than float32."""
+    dtype = getattr(model, "compute_dtype", None)
+    for name, m in model.named_modules():
+        if not isinstance(m, TorchBatchNorm) or m.data_group is not None:
+            continue
+        on = torch.device(device) if device is not None else m.weight.device
+        if on.type != "cuda":
+            continue
+        if dtype not in (None, torch.bfloat16, torch.float32) or (
+                m.weight.dtype != torch.float32):
+            raise TypeError(
+                f"train-mode BatchNorm on {on} runs K7, which takes "
+                f"bfloat16 or float32 activations and float32 parameters; "
+                f"{name} has compute dtype {dtype} and parameters "
+                f"{m.weight.dtype} (train on the CPU for float64)")
 
 
 def _hold_running_vars(model: nn.Module, args) -> None:

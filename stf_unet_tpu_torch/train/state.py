@@ -46,7 +46,8 @@ import torch
 import torch.nn as nn
 
 from stf_unet_tpu_torch.core.config import OptimConfig
-from stf_unet_tpu_torch.models.blocks import convert_sync_batchnorm
+from stf_unet_tpu_torch.models.blocks import (check_k7_dtypes,
+                                              convert_sync_batchnorm)
 
 
 def make_optimizer(cfg: OptimConfig, model: nn.Module,
@@ -99,6 +100,9 @@ class TrainState:
     # signature of train_one_epoch's previous step (train/loop)
     step_graph: Any = None
     last_signature: Optional[tuple] = None
+
+    def __post_init__(self) -> None:
+        check_k7_dtypes(self.model)
 
     def update_ema(self) -> None:
         """Advance the EMA after an apply (the JAX train step's update)."""

@@ -48,7 +48,9 @@ _SIDE: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 def counted_kernels() -> List[Callable]:
     """The hand-written kernels' wrappers and the window-attention op,
-    each counting its launches (calls)."""
+    each counting its launches (the op: its calls)."""
+    from stf_unet_tpu_torch.ops.kernels.batch_norm import (
+        batch_norm_backward, batch_norm_forward)
     from stf_unet_tpu_torch.ops.kernels.lstm_last import lstm_last
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x import lstm_last_x
     from stf_unet_tpu_torch.ops.kernels.lstm_last_x_bwd import \
@@ -60,7 +62,8 @@ def counted_kernels() -> List[Callable]:
     from stf_unet_tpu_torch.ops.window_attention import window_attention
 
     return [lstm_last_x, lstm_last_x_bwd, lstm_last, warp, tofts_sums,
-            quantize_patches, dequant_epilogue, window_attention]
+            quantize_patches, dequant_epilogue, window_attention,
+            batch_norm_forward, batch_norm_backward]
 
 
 class LaunchDelta:

@@ -375,7 +375,8 @@ def test_a_capture_against_a_stub_graph(monkeypatch):
 
 def test_the_counters_are_the_port_kernels():
     names = {k.__name__ for k in step_graph.counted_kernels()}
-    assert {"lstm_last_x", "lstm_last_x_bwd", "warp"} <= names
+    assert {"lstm_last_x", "lstm_last_x_bwd", "warp", "batch_norm_forward",
+            "batch_norm_backward"} <= names
     assert all(isinstance(k.launches, int)
                for k in step_graph.counted_kernels())
 
