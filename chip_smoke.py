@@ -1596,24 +1596,16 @@ PATH_ERR_RATIO = 2.0
 PATH_ERR_FLOOR = 1e-2
 
 
-def counters():
-    from stf_unet_tpu_torch.ops.kernels.batch_norm import (
-        batch_norm_backward, batch_norm_forward)
-    from stf_unet_tpu_torch.ops.kernels.lstm_last import lstm_last
-    from stf_unet_tpu_torch.ops.kernels.lstm_last_x import lstm_last_x
-    from stf_unet_tpu_torch.ops.kernels.lstm_last_x_bwd import (
-        lstm_last_x_bwd)
-    from stf_unet_tpu_torch.ops.kernels.quant import (dequant_epilogue,
-                                                      quantize_patches)
-    from stf_unet_tpu_torch.ops.kernels.tofts import tofts_sums
-    from stf_unet_tpu_torch.ops.kernels.warp import warp
+# the kernel table's names for the wrappers not named so
+COUNTER_NAMES = {"quantize_patches": "quant_patches",
+                 "dequant_epilogue": "quant_epilogue"}
 
-    return {"lstm_last_x": lstm_last_x, "lstm_last": lstm_last,
-            "lstm_last_x_bwd": lstm_last_x_bwd, "warp": warp,
-            "tofts_sums": tofts_sums, "quant_patches": quantize_patches,
-            "quant_epilogue": dequant_epilogue,
-            "batch_norm_forward": batch_norm_forward,
-            "batch_norm_backward": batch_norm_backward}
+
+def counters():
+    from stf_unet_tpu_torch.ops import counted_kernels
+
+    return {COUNTER_NAMES.get(k.__name__, k.__name__): k
+            for k in counted_kernels()}
 
 
 def check_bn_launches(label: str, launches: dict, model: str,

@@ -45,8 +45,9 @@
 // writes a partial (count, mean, M2) a channel and split. The finish
 // merges a channel's partials by Chan's rule, in a fixed order (one warp a
 // channel, then a fixed butterfly), so every run is bit-identical; it
-// writes mean and invstd in float32 and updates the running statistics as
-// F.batch_norm does in training (momentum, the unbiased n / (n - 1)).
+// writes mean and invstd in float32 and moves the running statistics
+// toward the batch's mean and biased variance, flax's BatchNorm rule (the
+// JAX package's): new = (1 - momentum) * old + momentum * batch.
 // Normalize: y = (x - mean) * (w * invstd) + b in x's dtype. Backward:
 // the same tiling sums dy and dy * (x - mean) a channel and split; the
 // finish gives grad_b = sum dy and grad_w = invstd * sum dy * (x - mean)
@@ -358,8 +359,7 @@ __global__ void __launch_bounds__(kFinishWarps * 32)
   invstd[ch] = 1.0f / sqrtf(var + eps);
   if (running_mean != nullptr) {
     running_mean[ch] = momentum * m + (1.0f - momentum) * running_mean[ch];
-    running_var[ch] =
-        momentum * (m2 / (n - 1.0f)) + (1.0f - momentum) * running_var[ch];
+    running_var[ch] = momentum * var + (1.0f - momentum) * running_var[ch];
   }
 }
 

@@ -17,7 +17,8 @@ import torch.distributed as dist
 import torch.nn as nn
 
 from stf_unet_tpu_torch.ops.conv import Conv2d, ConvTranspose2d
-from stf_unet_tpu_torch.ops.kernels.batch_norm import batch_norm_train
+from stf_unet_tpu_torch.ops.kernels.batch_norm import (batch_norm_train,
+                                                        update_running_stats)
 from stf_unet_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 # torch convention: running = (1 - momentum)*running + momentum*batch
@@ -37,18 +38,13 @@ class TorchBatchNorm(nn.BatchNorm2d):
 
     In training (no data group) the layer runs K7, ops/kernels/
     batch_norm.batch_norm_train: the hand-written kernels on a CUDA
-    tensor, their plain twin on a CPU one. Its update is F.batch_norm's,
-    new = (1 - m) * old + m * unbiased; a correction then gives flax's,
-        (1 - m) * old + m * biased = new + ((1 - m) * old - new) / n,
-    a lerp of new toward (1 - m) * old by 1 / n, made on `.data`. A layer
-    corrects itself (two small launches) unless its model's forward hooks
-    (`batch_running_var_updates`) hold it: then one foreach pass corrects
-    every layer of the model after the forward.
+    tensor, their plain twin on a CPU one. K7 updates the running
+    statistics by flax's rule itself.
 
     Under data parallelism (`convert_sync_batchnorm`) a train-mode layer
     takes its statistics over the global batch instead: flax's rule over
-    every rank's rows (_SyncBatchNorm), its running variance updated to
-    flax's rule directly, so the hooks leave it alone.
+    every rank's rows (_SyncBatchNorm), the running statistics updated by
+    the same rule (batch_norm.update_running_stats).
 
     Inside `frozen_running_stats()` (a rematerialized forward's recompute,
     models/stf_lstm_unet.py) a train-mode layer normalizes with the batch
@@ -57,9 +53,6 @@ class TorchBatchNorm(nn.BatchNorm2d):
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPS, momentum=BN_MOMENTUM)
-        # None: correct itself; 0: held by the model's hooks, not run yet
-        # in this forward; > 0: held, ran over this many rows
-        self.held_rows = None
         # the DataGroup (core/mesh.py) whose ranks share the statistics,
         # or None for this process's rows alone
         self.data_group = None
@@ -73,14 +66,7 @@ class TorchBatchNorm(nn.BatchNorm2d):
             return self._synced_forward(x)
         self._check_input_dim(x)
         self.num_batches_tracked.add_(1)
-        rows = x.numel() // x.shape[1]
-        if self.held_rows == 0:
-            self.held_rows = rows
-            return self._train_forward(x, update=True)
-        keep = self.running_var * (1.0 - self.momentum)
-        y = self._train_forward(x, update=True)
-        self.running_var.data.lerp_(keep, 1.0 / rows)
-        return y
+        return self._train_forward(x, update=True)
 
     def _train_forward(self, x: torch.Tensor, update: bool) -> torch.Tensor:
         return batch_norm_train(
@@ -99,13 +85,9 @@ class TorchBatchNorm(nn.BatchNorm2d):
 
     def _synced_forward(self, x: torch.Tensor) -> torch.Tensor:
         mean, var, n = global_batch_stats(x)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean.to(
-                self.running_mean.dtype), alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var.to(
-                self.running_var.dtype), alpha=m)
-            self.num_batches_tracked.add_(1)
+        update_running_stats(self.running_mean, self.running_var, mean, var,
+                             self.momentum)
+        self.num_batches_tracked.add_(1)
         return _SyncBatchNorm.apply(x, self.weight, self.bias, mean, var, n,
                                     self.eps)
 
@@ -225,40 +207,6 @@ def check_k7_dtypes(model: nn.Module, device=None) -> None:
                 f"bfloat16 or float32 activations and float32 parameters; "
                 f"{name} has compute dtype {dtype} and parameters "
                 f"{m.weight.dtype} (train on the CPU for float64)")
-
-
-def _hold_running_vars(model: nn.Module, args) -> None:
-    layers = [m for m in model.modules() if isinstance(m, TorchBatchNorm)
-              and m.training and m.track_running_stats
-              and m.data_group is None]
-    if not layers:
-        return
-    for m in layers:
-        m.held_rows = 0
-    with torch.no_grad():
-        keep = torch._foreach_mul([m.running_var for m in layers],
-                                  [1.0 - m.momentum for m in layers])
-    model.__dict__["_held_running_vars"] = (layers, keep)
-
-
-def _correct_running_vars(model: nn.Module, args, out) -> None:
-    layers, keep = model.__dict__.pop("_held_running_vars", ((), ()))
-    ran = [i for i, m in enumerate(layers) if m.held_rows]
-    if ran:
-        torch._foreach_lerp_([layers[i].running_var.data for i in ran],
-                             [keep[i] for i in ran],
-                             [1.0 / layers[i].held_rows for i in ran])
-    for m in layers:
-        m.held_rows = None
-
-
-def batch_running_var_updates(model: nn.Module) -> None:
-    """Register the forward hooks that take the running-variance
-    correction of every TorchBatchNorm of `model` in one foreach pass per
-    train-mode forward (a snapshot before it, the lerp after it) instead
-    of two launches per layer. Each layer must run once per forward."""
-    model.register_forward_pre_hook(_hold_running_vars)
-    model.register_forward_hook(_correct_running_vars)
 
 
 class DoubleConv(nn.Sequential):

@@ -48,7 +48,6 @@ import torch.utils.checkpoint
 
 from stf_unet_tpu_torch.models.blocks import (ConvTranspose, DecoderBlock,
                                               ResidualConvBlock,
-                                              batch_running_var_updates,
                                               frozen_running_stats)
 from stf_unet_tpu_torch.models.resnet import ResNet34Encoder
 from stf_unet_tpu_torch.ops import conv as conv_lib
@@ -113,7 +112,6 @@ class STFLSTMUNet(ResNet34Encoder):
         self.upconv1 = ConvTranspose(64, 32)
         self.final_res = ResidualConvBlock(32, 32)
         self.final = Conv2d(32, num_classes, 1)
-        batch_running_var_updates(self)
 
     def set_lstm_backend(self, backend: str) -> None:
         for i in range(len(_SCALE_WIDTHS)):

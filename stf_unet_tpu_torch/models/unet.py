@@ -20,8 +20,7 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
-from stf_unet_tpu_torch.models.blocks import (DoubleConv,
-                                              batch_running_var_updates)
+from stf_unet_tpu_torch.models.blocks import DoubleConv
 from stf_unet_tpu_torch.ops.conv import (Conv2d, ConvTranspose2d,
                                           max_pool2d)
 
@@ -46,7 +45,6 @@ class UNet(nn.Module):
                                                     stride=2))
             setattr(self, f"dec{i}", DoubleConv(width * 2, width))
         self.out_conv = Conv2d(c, num_classes, 1)
-        batch_running_var_updates(self)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """x: [B, H, W, Cin] -> {"out": float32 logits [B, H, W,

@@ -10,9 +10,9 @@ any other layout is refused, never copied), weight and bias float32 [C]:
   forward   y = (x - mean) * (weight * invstd) + bias, in x's dtype, with
             mean and the biased variance over the N*H*W rows of each
             channel (invstd = 1 / sqrt(var + eps), both float32); the
-            running statistics, when given, move as F.batch_norm moves
-            them in training: (1 - m) * old + m * batch, the variance's
-            batch term unbiased (n / (n - 1));
+            running statistics, when given, move toward the batch's mean
+            and biased variance by flax's BatchNorm rule (the JAX
+            package's), (1 - m) * old + m * batch (`update_running_stats`);
   backward  grad_bias = sum(dy), grad_weight = sum(dy * xhat) (float32),
             dx = weight * invstd * (dy - sum(dy) / n - xhat * sum(dy *
             xhat) / n) in x's dtype, xhat = (x - mean) * invstd.
@@ -189,13 +189,21 @@ def batch_norm_forward_plain(x: torch.Tensor, weight: torch.Tensor,
     scale = weight.to(acc) * invstd
     y = torch.addcmul(_col(bias.to(acc)), xf - _col(mean), _col(scale))
     if running_mean is not None:
-        n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            running_mean.mul_(1.0 - momentum).add_(
-                mean.to(running_mean.dtype), alpha=momentum)
-            running_var.mul_(1.0 - momentum).add_(
-                (var * (n / (n - 1))).to(running_var.dtype), alpha=momentum)
+        update_running_stats(running_mean, running_var, mean, var, momentum)
     return y.to(x.dtype), mean, invstd
+
+
+def update_running_stats(running_mean: torch.Tensor,
+                         running_var: torch.Tensor, mean: torch.Tensor,
+                         var: torch.Tensor, momentum: float) -> None:
+    """flax's BatchNorm update of the running statistics, in place:
+    (1 - momentum) * old + momentum * batch, with the batch's biased
+    variance (csrc/batch_norm.cu's finish kernel does the same)."""
+    with torch.no_grad():
+        running_mean.mul_(1.0 - momentum).add_(
+            mean.to(running_mean.dtype), alpha=momentum)
+        running_var.mul_(1.0 - momentum).add_(
+            var.to(running_var.dtype), alpha=momentum)
 
 
 def batch_norm_backward_plain(dy: torch.Tensor, x: torch.Tensor,

@@ -32,38 +32,20 @@ One graph is held (TrainState.step_graph): capturing another signature
 drops it, a signature met in no two steps in a row (an epoch's ragged
 last batch) runs warm beside it, and an optimizer whose state was
 replaced (load_state_dict) is captured again. `LaunchDelta` keeps the
-kernels' launch counters (`.launches`, ops/kernels and
-ops/window_attention) counting what each replay launches.
+launch counters of ops.counted_kernels() counting what each replay
+launches.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import torch
 
+from stf_unet_tpu_torch import ops
+
 _SIDE: Dict[torch.device, "torch.cuda.Stream"] = {}
-
-
-def counted_kernels() -> List[Callable]:
-    """The hand-written kernels' wrappers and the window-attention op,
-    each counting its launches (the op: its calls)."""
-    from stf_unet_tpu_torch.ops.kernels.batch_norm import (
-        batch_norm_backward, batch_norm_forward)
-    from stf_unet_tpu_torch.ops.kernels.lstm_last import lstm_last
-    from stf_unet_tpu_torch.ops.kernels.lstm_last_x import lstm_last_x
-    from stf_unet_tpu_torch.ops.kernels.lstm_last_x_bwd import \
-        lstm_last_x_bwd
-    from stf_unet_tpu_torch.ops.kernels.quant import (dequant_epilogue,
-                                                      quantize_patches)
-    from stf_unet_tpu_torch.ops.kernels.tofts import tofts_sums
-    from stf_unet_tpu_torch.ops.kernels.warp import warp
-    from stf_unet_tpu_torch.ops.window_attention import window_attention
-
-    return [lstm_last_x, lstm_last_x_bwd, lstm_last, warp, tofts_sums,
-            quantize_patches, dequant_epilogue, window_attention,
-            batch_norm_forward, batch_norm_backward]
 
 
 class LaunchDelta:
@@ -71,9 +53,8 @@ class LaunchDelta:
     wrappers once and launches nothing, so its counts are taken back when
     it closes, and added again at every replay."""
 
-    def __init__(self, kernels: Optional[Sequence[Callable]] = None):
-        self.kernels = list(counted_kernels() if kernels is None
-                            else kernels)
+    def __init__(self):
+        self.kernels = ops.counted_kernels()
         self.delta = [0] * len(self.kernels)
 
     @contextlib.contextmanager

@@ -8,8 +8,9 @@ On the CPU:
     HW = 49, C = 32 and 1024 and row counts that no split divides;
     gradcheck of the autograd Function in float64;
   * TorchBatchNorm against the rule it followed before K7 (nn.BatchNorm2d
-    and flax's running-variance correction), alone, under the model's
-    hooks and in the frozen (remat) recompute;
+    and flax's running-variance correction), alone, as two layers of a
+    model, as one layer run twice in a forward, and in the frozen (remat)
+    recompute;
   * the refusals: a 5-D input, a non-contiguous one, one row a channel,
     and (at a TrainState's construction) a float64 model whose BN would
     run K7 on a card;
@@ -39,7 +40,6 @@ import torch.nn.functional as F
 from stf_unet_tpu_torch.core.config import ModelConfig
 from stf_unet_tpu_torch.models import blocks
 from stf_unet_tpu_torch.models.blocks import (TorchBatchNorm,
-                                              batch_running_var_updates,
                                               frozen_running_stats)
 from stf_unet_tpu_torch.models.registry import create_model
 from stf_unet_tpu_torch.ops.kernels import batch_norm as bn
@@ -98,8 +98,11 @@ def test_plain_twins_are_f_batch_norm(shape, dtype, channels_last):
     xr, wr, br = (v.to(torch.float64, copy=True).requires_grad_()
                   for v in (x, w, b))
     rm, rv = (s.to(torch.float64, copy=True) for s in stats)
+    keep = rv * (1 - 0.1)
     y_ref = F.batch_norm(xr, rm, rv, wr, br, True, 0.1, 1e-5)
     y_ref.backward(dy.double())
+    # flax's running variance: F.batch_norm's, corrected as _before does
+    rv.lerp_(keep, 1.0 / (x.numel() // c))
     _, save_mean, save_invstd = torch.ops.aten.native_batch_norm(
         *(v.double() for v in (x, w, b)), None, None, True, 0.1, 1e-5)
 
@@ -165,10 +168,13 @@ def _before(layer: TorchBatchNorm, x: torch.Tensor, frozen=False):
 
 
 class _TwoBN(nn.Module):
-    def __init__(self, c):
+    """Two train-mode BN calls in one forward: layers a and b, or (twice)
+    layer a run two times."""
+
+    def __init__(self, c, twice=False):
         super().__init__()
-        self.a, self.b = TorchBatchNorm(c), TorchBatchNorm(c)
-        batch_running_var_updates(self)
+        self.a = TorchBatchNorm(c)
+        self.b = self.a if twice else TorchBatchNorm(c)
 
     def forward(self, x):
         return self.b(torch.relu(self.a(x)))
@@ -176,22 +182,29 @@ class _TwoBN(nn.Module):
 
 @pytest.mark.parametrize("channels_last", [False, True],
                          ids=["nchw", "channels_last"])
-@pytest.mark.parametrize("mode", ["alone", "hooks", "frozen"])
+@pytest.mark.parametrize("mode", ["alone", "in_a_model",
+                                  "twice_in_a_forward", "frozen"])
 def test_torch_batch_norm_keeps_its_rule(mode, channels_last):
     torch.manual_seed(0)
     c = 6
     x = _input((3, c, 5, 4), torch.float64, channels_last)
-    if mode == "hooks":
-        model = _TwoBN(c).double().train()
+    if mode in ("in_a_model", "twice_in_a_forward"):
+        twice = mode == "twice_in_a_forward"
+        model = _TwoBN(c, twice).double().train()
         for layer in (model.a, model.b):
             layer.running_mean.uniform_(-1, 1)
             layer.running_var.uniform_(0.5, 2)
             layer.weight.data.uniform_(0.5, 1.5)
         y_a, sd_a = _before(model.a, x)
-        y_want, sd_b = _before(model.b, torch.relu(y_a))
+        second = TorchBatchNorm(c).double()
+        second.load_state_dict(sd_a if twice else model.b.state_dict())
+        y_want, sd_b = _before(second, torch.relu(y_a))
         y = model(x)
-        got = {"a": model.a.state_dict(), "b": model.b.state_dict()}
-        wants = {"a": sd_a, "b": sd_b}
+        if twice:
+            got, wants = {"a": model.a.state_dict()}, {"a": sd_b}
+        else:
+            got = {"a": model.a.state_dict(), "b": model.b.state_dict()}
+            wants = {"a": sd_a, "b": sd_b}
     else:
         layer = TorchBatchNorm(c).double().train()
         layer.running_mean.uniform_(-1, 1)

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from stf_unet_tpu_torch import ops
 from stf_unet_tpu_torch.core.config import DataConfig, ModelConfig, OptimConfig
 from stf_unet_tpu_torch.core.prng import augment_generator
 from stf_unet_tpu_torch.data import transforms
@@ -321,8 +322,7 @@ class _StubGraph:
 def test_a_capture_against_a_stub_graph(monkeypatch):
     fwd, bwd, other = _kernel("fwd"), _kernel("bwd"), _kernel("other")
     fwd.launches, bwd.launches, other.launches = 10, 20, 30
-    monkeypatch.setattr(step_graph, "counted_kernels",
-                        lambda: [fwd, bwd, other])
+    monkeypatch.setattr(ops, "counted_kernels", lambda: [fwd, bwd, other])
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubGraph)
     monkeypatch.setattr(step_graph, "side_stream", lambda device: None)
     captured = []
@@ -374,11 +374,10 @@ def test_a_capture_against_a_stub_graph(monkeypatch):
 
 
 def test_the_counters_are_the_port_kernels():
-    names = {k.__name__ for k in step_graph.counted_kernels()}
+    names = {k.__name__ for k in ops.counted_kernels()}
     assert {"lstm_last_x", "lstm_last_x_bwd", "warp", "batch_norm_forward",
-            "batch_norm_backward"} <= names
-    assert all(isinstance(k.launches, int)
-               for k in step_graph.counted_kernels())
+            "batch_norm_backward", "window_attention"} <= names
+    assert all(isinstance(k.launches, int) for k in ops.counted_kernels())
 
 
 # ------------------------------------------------------------ on the card

@@ -305,26 +305,23 @@ def test_whole_train_step_matches_jax():
                                        err_msg=key)
 
 
-@pytest.mark.parametrize("held", [False, True],
-                         ids=["layer_alone", "model_hooks"])
-def test_batchnorm_running_stats_take_flax_update(held):
-    """Both correction paths of models/blocks.TorchBatchNorm (a layer on
-    its own, and a model's one foreach pass) against flax's BatchNorm
-    over the same float64 rows, three train-mode forwards: the running
-    mean and variance within 1e-12, the output within 1e-10."""
+@pytest.mark.parametrize("channels_last", [False, True],
+                         ids=["nchw", "channels_last"])
+def test_batchnorm_running_stats_take_flax_update(channels_last):
+    """models/blocks.TorchBatchNorm in training (K7's plain twin on the
+    CPU) against flax's BatchNorm over the same float64 rows, in both
+    input layouts, three train-mode forwards: the running mean and
+    variance within 1e-12, the output within 1e-10."""
     from stf_unet_tpu.models.blocks import TorchBatchNorm as JaxBN
-    from stf_unet_tpu_torch.models.blocks import (TorchBatchNorm,
-                                                  batch_running_var_updates)
+    from stf_unet_tpu_torch.models.blocks import TorchBatchNorm
 
     rng = np.random.default_rng(7)
     xs = [rng.normal(1.0, 2.0, (3, 5, 4, 6)) for _ in range(3)]  # NCHW
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
     bn = TorchBatchNorm(5).double()
     with torch.no_grad():
         bn.running_var.uniform_(0.5, 1.5)
         bn.running_mean.uniform_(-1.0, 1.0)
-    model = torch.nn.Sequential(bn)
-    if held:
-        batch_running_var_updates(model)
     jbn = JaxBN()
     with jax.enable_x64(True):
         stats = {"bn": {"mean": jnp.array(bn.running_mean.numpy()),
@@ -333,7 +330,7 @@ def test_batchnorm_running_stats_take_flax_update(held):
                           jnp.zeros((1, 4, 6, 5), jnp.float64),
                           use_running_average=True)["params"]
         for x in xs:
-            y = model(torch.from_numpy(x))
+            y = bn(torch.from_numpy(x).contiguous(memory_format=fmt))
             want, upd = jbn.apply(
                 {"params": params, "batch_stats": stats},
                 jnp.asarray(x.transpose(0, 2, 3, 1)),
@@ -348,4 +345,3 @@ def test_batchnorm_running_stats_take_flax_update(held):
         np.testing.assert_allclose(bn.running_var.numpy(),
                                    np.asarray(stats["bn"]["var"]),
                                    atol=1e-12, rtol=0)
-    assert bn.held_rows is None
